@@ -1,0 +1,58 @@
+"""Kernel 1 of the port, the batched fixed-iteration ADMM: its plain
+version against the JAX package's Pallas kernel (interpret mode). The CUDA
+kernel is held to the plain version in tests/test_torch_kernels_cuda.py."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import torch_helpers  # noqa: F401  (single-threaded torch)
+
+from soft_robot_control_tpu.control.batch_mpc import make_kinv as jax_make_kinv
+from soft_robot_control_tpu.ops.pallas_admm import admm_batched_pallas
+from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
+                                                           admm_batched_plain)
+
+
+def _qps(B, n, m, seed, eq_rows=0):
+    rng = np.random.default_rng(seed)
+    Ph = rng.normal(size=(B, n, n))
+    P = Ph @ Ph.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = rng.normal(size=(B, n))
+    A = rng.normal(size=(B, m, n))
+    mid = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.2)
+    l = mid - rng.uniform(0.1, 1, (B, m))
+    u = mid + rng.uniform(0.1, 1, (B, m))
+    l[:, :eq_rows] = u[:, :eq_rows]
+    rho = 0.1 * np.ones(m)
+    rho[:eq_rows] *= 1000
+    Kinv = np.array(jax.vmap(lambda P_, A_: jax_make_kinv(
+        P_, A_, jnp.asarray(rho)))(jnp.asarray(P), jnp.asarray(A)))
+    w0 = 0.1 * rng.normal(size=(B, n))
+    y0 = 0.1 * rng.normal(size=(B, m))
+    return Kinv, A, q, l, u, rho, w0, y0
+
+
+# the chunk shapes of tests/test_pallas.py, B=1 and a ragged B=3 at the
+# main path's n=20, m=40, and equality rows with a boosted rho
+@pytest.mark.parametrize("B,n,m,eq", [(32, 12, 16, 0), (64, 20, 40, 0),
+                                      (1, 20, 40, 0), (3, 20, 40, 0),
+                                      (4, 24, 32, 5)])
+def test_plain_matches_pallas(B, n, m, eq):
+    args = _qps(B, n, m, seed=B + n, eq_rows=eq)
+    w1, y1 = admm_batched_pallas(*[jnp.asarray(a) for a in args], 150,
+                                 interpret=True)
+    launches = admm_batched.launches
+    w2, y2 = admm_batched(*[torch.as_tensor(a) for a in args], 150)
+    assert admm_batched.launches == launches  # CPU tensors: no kernel
+    np.testing.assert_allclose(w2.numpy(), np.asarray(w1), atol=1e-10)
+    np.testing.assert_allclose(y2.numpy(), np.asarray(y1), atol=1e-10)
+
+
+def test_wrapper_rejects_other_devices():
+    args = [torch.as_tensor(a).to("meta") for a in _qps(2, 4, 6, seed=0)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        admm_batched(*args, 5)
+
