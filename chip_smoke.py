@@ -1,28 +1,46 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: both CUDA kernels from soft_robot_control_tpu_torch/csrc, one
+2. build: the four CUDA kernels from soft_robot_control_tpu_torch/csrc, one
    nvcc each, started together;
-3. kernel 1 (batched ADMM) against its plain PyTorch version on QPs that
-   the port assembles from the Diamond campaign dictionary, in f64 and
-   f32, at B=1024, 1 and 3;
+3. kernel 1 (batched ADMM, QP resident in shared memory) against its plain
+   PyTorch version on condensed QPs (n=20, m=40) that the port assembles
+   from the Diamond campaign dictionary, in f64 and f32, at B=1024, 1, 3;
 4. kernel 2 (TPWL select and gather) against its plain version on 5120
    states near the campaign dictionary (P=1087, r=30);
-5. the main path: BatchMPC, condensed, build_fused at B=1024 for 4 windows
-   with bench.py's quality-gated settings, on the full campaign artifact.
-   The tracking error against dynamically feasible targets must be
-   <= 0.05, both kernels must have been launched, and a B=8 run must agree
-   with the port's f64 CPU run of the same loop. A profiler pass records
-   where the device time of one run goes.
+5. kernel 3 (batched ADMM, QP streamed from device memory) against the same
+   plain version on sparse QPs (n=380, m=400, one-sided rows with infinite
+   bounds) assembled, equilibrated and rho-folded as the fused sparse loop
+   builds them, in f64 and f32, at B=64, 1, 3; timed at B=1024;
+6. kernel 4 (single-QP ADMM through M1) against its plain version on one
+   such QP prepared as the single-trajectory loop prepares it, f64 and
+   f32, 50 iterations;
+7. the condensed path: BatchMPC, condensed, build_fused at B=1024 for 4
+   windows with bench.py's quality-gated settings, on the full campaign
+   artifact. The tracking error against dynamically feasible targets must
+   be <= 0.05, kernels 1 and 2 must have been launched 4 and 3 times a
+   window, and B=8 runs on the card, in f32 and in f64, must agree with
+   the port's f64 CPU run of the same loop. A profiler pass records where
+   the device time of one run goes;
+8. path A, the fused sparse loop: BatchMPC, sparse, build_fused at B=1024
+   for 4 windows (K^-1 x-step, 100 iterations in 4 rho stages, 6 Ruiz
+   iterations, R = 1e-5 I), with the same checks through kernels 3 and 2,
+   plus the peak device memory;
+9. path B, the single-trajectory sparse loop: BatchMPC(use_pallas=True),
+   build for 10 windows (50 iterations, R = 1e-3 I): one launch of kernel 4
+   and three of kernel 2 a window, finite logs, agreement of the f32 and
+   the f64 card runs with the f64 CPU run.
 
-The last three lines of standard output are the per-kernel JSON record,
-the card's name and power limit, and {"ok": true, "device": {...}}. The
-full record is also written to build/chip_smoke.json. Without a card
-the script exits non-zero before printing any result.
+Every launch count is set to 0 just before a path is driven and read just
+after. The last three lines of standard output are the per-kernel JSON
+record, the card's name and power limit, and {"ok": true, "device":
+{...}}. The full record is also written to build/chip_smoke.json. Without
+a card the script exits non-zero before printing any result. It takes about
+two minutes on an H100, the build included.
 """
 
 import json
@@ -45,10 +63,13 @@ from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
     from_tpwl_dict, rollout_batch)
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
 from soft_robot_control_tpu_torch.ops.admm_batched import (  # noqa: E402
-    admm_batched, admm_batched_plain)
+    admm_batched, admm_batched_plain, admm_stream)
+from soft_robot_control_tpu_torch.ops.admm_single import (  # noqa: E402
+    admm_single, admm_single_plain, prepare_single)
 from soft_robot_control_tpu_torch.ops.tpwl_select import (  # noqa: E402
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv  # noqa: E402
+from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp_condensed import (  # noqa: E402
     CondensedParams)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
@@ -56,16 +77,34 @@ from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
 
 ARTIFACT = os.path.join(HERE, "examples", "diamond_tet",
                         "tpwl_model_snapshots.pkl")
-KERNELS = ("admm_batched", "tpwl_select")
+KERNELS = ("admm_batched", "tpwl_select", "admm_stream", "admm_single")
+WRAPPERS = {"admm_batched": admm_batched, "tpwl_select": tpwl_select,
+            "admm_stream": admm_stream, "admm_single": admm_single}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 QUALITY_GATE = 0.05         # bench.py's rel tracking error gate
 ADMM_F64_TOL = 1e-9         # max abs error, kernel vs plain, f64
 ADMM_F32_TOL = 1e-4         # max abs error over max(|w|, |y|, 1), f32
 CPU_AGREE_TOL = 1e-4        # rel z difference, f32 card vs f64 CPU loop
+# The sparse QP keeps the dynamics as equality rows with a 1e3 rho boost,
+# and K^-1 of that KKT amplifies f32 rounding: in the kernels' sums, which
+# run in another order than the plain version's (measured on an H100: up to
+# 3.7e-4 of the solution's scale for kernel 3, 5e-5 for kernel 4), and, in
+# the loops, in the library factorizations around them alike (measured f32
+# card against f64 CPU: 4.4e-3 on path A, 2.1e-2 on path B, whose
+# R = 1e-3 I keeps the output's own variation, the denominator, small).
+# The f64 card runs of the same loops are therefore held to the f64 CPU
+# runs too, at F64_CPU_AGREE_TOL: that comparison is the one that would
+# show a kernel at fault inside a loop.
+SPARSE_F32_TOL = 1e-3
+PATH_A_CPU_AGREE_TOL = 1e-2
+PATH_B_CPU_AGREE_TOL = 5e-2
+F64_CPU_AGREE_TOL = 1e-6    # rel z difference, f64 card vs f64 CPU loop
 NEAR_TIE = 1e-6             # f64 relative gap under which indices may differ
 N, N_REPLAN, N_WIN, B_MAIN, B_CPU = 5, 2, 4, 1024, 8
+N_WIN_B = 10                # windows of the single-trajectory path
 ITERS = 100 // 4            # ADMM iterations per launch (100 in 4 stages)
+ITERS_B = 50                # iterations of the single-QP launch
 
 
 def check(ok, msg):
@@ -98,23 +137,38 @@ def bound(bytes_moved, flops):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def make_mpc(model, dtype, device):
-    """BatchMPC at bench.py's quality-gated settings."""
+def reset_counts():
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def make_mpc(model, dtype, device, path="condensed"):
+    """BatchMPC at bench.py's settings: 'condensed' and 'A' (sparse) are
+    the quality-gated fused loops, 'B' the single-trajectory sparse loop
+    through the single-QP kernel."""
     nz, m_in = model.H.shape[0], model.input_dim
+    kw = dict(N=N, dt=0.01, N_replan=N_REPLAN, scp_iters=1, dtype=dtype,
+              U=HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in)),
+              W=1e-2 * np.eye(model.state_dim),
+              V=1e-4 * np.eye(model.C.shape[0]), device=device)
+    if path == "B":
+        return BatchMPC(model, 100.0 * np.eye(nz), 1e-3 * np.eye(m_in),
+                        qp_iters=ITERS_B, use_pallas=True, **kw)
     return BatchMPC(
-        model, 100.0 * np.eye(nz), 1e-5 * np.eye(m_in), N=N, dt=0.01,
-        N_replan=N_REPLAN, qp_iters=100, scp_iters=1, dtype=dtype,
-        formulation="condensed",
-        U=HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in)),
-        rho_stages=4, scaling_iters=6, W=1e-2 * np.eye(model.state_dim),
-        V=1e-4 * np.eye(model.C.shape[0]), device=device)
+        model, 100.0 * np.eye(nz), 1e-5 * np.eye(m_in), qp_iters=100,
+        x_step="kinv", rho_stages=4, scaling_iters=6,
+        formulation="condensed" if path == "condensed" else "sparse", **kw)
 
 
-def feasible_targets(model, B):
+def feasible_targets(model, B, n_win):
     """bench.py's quality targets: the model's own z-response to smooth
-    admissible cable inputs, windowed (B, N_WIN, N+1, n_z)."""
+    admissible cable inputs, windowed (B, n_win, N+1, n_z)."""
     dt = model.pre_discretized_dt
-    T_q = N_WIN * N_REPLAN + N + 1
+    T_q = n_win * N_REPLAN + N + 1
     rng = np.random.default_rng(11)
     tq = dt * np.arange(T_q + 1)
     u_ref = 0.5 * 1500.0 * (1.0 + np.sin(
@@ -125,63 +179,100 @@ def feasible_targets(model, B):
     X = rollout_batch(model, x0, torch.as_tensor(
         u_ref, dtype=model.q.dtype, device=model.device), dt)
     zq = (X @ model.H.T + model.z_ref).cpu().numpy()
-    return np.stack([window_targets(zq[b, :T_q], N_WIN, N_REPLAN, N)
+    return np.stack([window_targets(zq[b, :T_q], n_win, N_REPLAN, N)
                      for b in range(B)])
 
 
 def rel_track(z, zt):
-    """bench.py's relative tracking error of logged z against the
-    executed target entries 1..N_replan of each window."""
-    B = z.shape[0]
-    zt_exec = zt[:, :, 1:N_REPLAN + 1, :].reshape(B, N_WIN * N_REPLAN, -1)
+    """bench.py's relative tracking error of logged z (B, T, n_z) against
+    the executed target entries 1..N_replan of each window of zt."""
+    B, n_win = zt.shape[:2]
+    zt_exec = zt[:, :, 1:N_REPLAN + 1, :].reshape(B, n_win * N_REPLAN, -1)
     den = max(np.linalg.norm(zt_exec - zt_exec.mean(axis=(0, 1))), 1e-12)
     return float(np.linalg.norm(z - zt_exec) / den)
 
 
-def admm_inputs(mpc, x, zt):
-    """Stage-0 inputs of the ADMM kernel as the main path builds them: QPs
-    linearized at the states x (B, n_x), equilibrated, rho folded into the
-    rows, K^-1 from make_kinv, all in mpc's dtype."""
+def window_qps(mpc, x, zt):
+    """The first window's QPs (P, q, A, l, u, w0, y0) as mpc's loop builds
+    them: linearized at the states x (B, n_x), assembled with mpc's spec,
+    Ruiz-equilibrated, with a cold start."""
     B = x.shape[0]
-    Ad, Bd, dd = mpc._gather_traj(x[:, None].expand(-1, N + 1, -1))
-    z = torch.as_tensor(zt, dtype=x.dtype, device=x.device)
-    P, q, A, l, u, _, _, _ = mpc.cspec.assemble(CondensedParams(
-        Ad=Ad, Bd=Bd, dd=dd, x0=x, z=z - mpc.model.z_ref,
-        u_des=torch.zeros((B, N, mpc.n_u), dtype=x.dtype, device=x.device)))
-    w0 = torch.zeros((B, mpc.cspec.n_var), dtype=x.dtype, device=x.device)
-    y0 = torch.zeros((B, mpc.cspec.n_con), dtype=x.dtype, device=x.device)
-    P, q, A, l, u, w0, y0, _ = equilibrate_qp(P, q, A, l, u, w0, y0, 6)
-    srt = torch.sqrt(mpc.rho_vec_c)
+    x_plan = x[:, None].expand(-1, N + 1, -1)
+    Ad, Bd, dd = mpc._gather_traj(x_plan)
+    z = torch.as_tensor(zt, dtype=x.dtype, device=x.device) - mpc.model.z_ref
+    zeros = lambda *shape: torch.zeros((B,) + shape, dtype=x.dtype,
+                                       device=x.device)
+    if mpc.formulation == "condensed":
+        qp = mpc.cspec.assemble(CondensedParams(
+            Ad=Ad, Bd=Bd, dd=dd, x0=x, z=z, u_des=zeros(N, mpc.n_u)))[:5]
+    else:
+        qp = mpc.spec.assemble(LOCPParams(
+            Ad=Ad, Bd=Bd, dd=dd, x0=x, xk=x_plan, delta=mpc.delta0,
+            omega=mpc.omega0, z=z, zf=zeros(mpc.n_z),
+            u_des=zeros(N, mpc.n_u)))[:5]
+    n_var, n_con = mpc._qp_dims()
+    return equilibrate_qp(*qp, zeros(n_var), zeros(n_con),
+                          mpc.scaling_iters)[:7]
+
+
+def admm_inputs(mpc, x, zt):
+    """Stage-0 inputs of the batched ADMM kernels as the fused loop builds
+    them: rho folded into the rows, K^-1 from make_kinv."""
+    P, q, A, l, u, w0, y0 = window_qps(mpc, x, zt)
+    rho = mpc.rho_vec_c if mpc.formulation == "condensed" else mpc.rho_vec
+    srt = torch.sqrt(rho)
     ones = torch.ones_like(srt)
     As = A * srt[None, :, None]
     return [make_kinv(P, As, ones), As, q, srt * l, srt * u, ones, w0,
             y0 / srt]
 
 
-def phase_admm(mpc64, mpc, x_qp, zt, card):
+def compare(name, tag, got, ref, dtype, tol_f32, f64_scaled=False):
+    """Max abs error of a kernel's (w, y) against its plain version's;
+    fails beyond 1e-9 (f64; times the solution's scale where `f64_scaled`,
+    for the sparse QPs, whose duals reach 1e4) or tol_f32 times the
+    solution's scale (f32)."""
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    scale = max(max(float(b.abs().max()) for b in ref), 1.0)
+    print(f"[{name}] {tag}: max abs err {err:.3e} (solution scale "
+          f"{scale:.3e})")
+    check(all(bool(torch.isfinite(a).all()) for a in got),
+          f"{name} {tag}: non-finite output")
+    if dtype == torch.float64:
+        tol = ADMM_F64_TOL * (scale if f64_scaled else 1.0)
+    else:
+        tol = tol_f32 * scale
+    check(err <= tol, f"{name} {tag}: error {err} > {tol}")
+    return {"max_abs_err": err, "scale": scale}
+
+
+def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps):
+    """A batched ADMM kernel against admm_batched_plain at the batch sizes
+    `sizes`, f64 and f32, then timed at B_MAIN in f32."""
+    name = wrapper.__name__
     out = {}
     for m in (mpc64, mpc):
-        args = admm_inputs(m, x_qp.to(m.dtype), zt[:, 0])
-        for B in (B_MAIN, 1, 3):
+        B_in = B_MAIN if m is mpc else max(sizes)
+        args = admm_inputs(m, x_qp[:B_in].to(m.dtype), zt[:B_in, 0])
+        if m is mpc64:
+            n_inf = int(torch.isinf(args[3][0]).sum()
+                        + torch.isinf(args[4][0]).sum())
+            print(f"[{name}] QPs of n={args[2].shape[1]}, "
+                  f"m={args[3].shape[1]} with {n_inf} infinite bounds each")
+        for B in sizes:
             a = [t[:B] if t.dim() > 1 else t for t in args]
-            w1, y1 = admm_batched(*a, ITERS)
-            w2, y2 = admm_batched_plain(*a, ITERS)
-            torch.cuda.synchronize()
-            err = max(float((w1 - w2).abs().max()),
-                      float((y1 - y2).abs().max()))
-            scale = max(float(w2.abs().max()), float(y2.abs().max()), 1.0)
+            count = wrapper.launches
+            got = wrapper(*a, ITERS)
+            check(wrapper.launches == count + 1,
+                  f"{name} did not launch its kernel")
             tag = f"{str(m.dtype)[6:]} B={B}"
-            out[tag] = {"max_abs_err": err, "scale": scale}
-            print(f"[admm_batched] {tag}: max abs err {err:.3e} "
-                  f"(solution scale {scale:.3e})")
-            check(bool(torch.isfinite(w1).all() and torch.isfinite(y1).all()),
-                  f"admm_batched {tag}: non-finite output")
-            tol = ADMM_F64_TOL if m.dtype == torch.float64 else (
-                ADMM_F32_TOL * scale)
-            check(err <= tol, f"admm_batched {tag}: error {err} > {tol}")
+            out[tag] = compare(name, tag, got, admm_batched_plain(*a, ITERS),
+                               m.dtype, tol_f32,
+                               f64_scaled=m.formulation == "sparse")
     B, n, mc = B_MAIN, args[2].shape[1], args[3].shape[1]
-    ms = cuda_ms(lambda: admm_batched(*args, ITERS), 50)
-    plain_ms = cuda_ms(lambda: admm_batched_plain(*args, ITERS), 5)
+    ms = cuda_ms(lambda: wrapper(*args, ITERS), reps)
+    plain_ms = cuda_ms(lambda: admm_batched_plain(*args, ITERS), 3)
     # inputs read once, outputs written once; per iteration three
     # mat-vecs (A^T, K^-1, A) and the element-wise updates
     nbytes = 4 * (B * n * n + B * mc * n + 3 * B * n + 4 * B * mc + mc)
@@ -191,7 +282,42 @@ def phase_admm(mpc64, mpc, x_qp, zt, card):
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, bytes=nbytes, flops=flops,
                shape=f"B={B}, n={n}, m={mc}, iters={ITERS}, f32")
-    print(f"[admm_batched] f32 B={B} n={n} m={mc} {ITERS} iters: kernel "
+    print(f"[{name}] f32 B={B} n={n} m={mc} {ITERS} iters: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}) [{card}]")
+    return out
+
+
+def phase_single(mpc64, mpc, x_qp, zt, card):
+    """The single-QP kernel against admm_single_plain on one sparse QP
+    prepared as admm_fixed_single prepares it, f64 and f32, then timed."""
+    out = {}
+    for m in (mpc64, mpc):
+        P, q, A, l, u, w0, y0 = (t[0] for t in window_qps(
+            m, x_qp[:1].to(m.dtype), zt[:1, 0]))
+        M1, l_f, u_f = prepare_single(P, A, l, u, m.rho_vec)
+        args = [M1, A, q, l_f, u_f, m.rho_vec, w0, y0]
+        count = admm_single.launches
+        got = admm_single(*args, ITERS_B)
+        check(admm_single.launches == count + 1,
+              "admm_single did not launch its kernel")
+        tag = str(m.dtype)[6:]
+        out[tag] = compare("admm_single", tag, got,
+                           admm_single_plain(*args, ITERS_B), m.dtype,
+                           SPARSE_F32_TOL, f64_scaled=True)
+    n, mc = q.shape[0], l.shape[0]
+    ms = cuda_ms(lambda: admm_single(*args, ITERS_B), 20)
+    plain_ms = cuda_ms(lambda: admm_single_plain(*args, ITERS_B), 3)
+    # M1, A and the vectors read once, (w, y) written once; per iteration
+    # four mat-vecs (A^T, M1, M1^T, A) and the element-wise updates
+    nbytes = 4 * (n * n + mc * n + 3 * n + 5 * mc)
+    flops = 2 * mc * n + 2 * mc + ITERS_B * (
+        4 * mc * n + 4 * n * n + 5 * n + 12 * mc)
+    bound_ms, bound_by = bound(nbytes, flops)
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, flops=flops,
+               shape=f"n={n}, m={mc}, iters={ITERS_B}, f32")
+    print(f"[admm_single] f32 n={n} m={mc} {ITERS_B} iters: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}) [{card}]")
     return out
@@ -251,36 +377,59 @@ def phase_select(model64, model, x64, card):
     return out
 
 
-def phase_main(mpc, model64, zt, card):
+def check_logs(tag, logs, shape_z, shape_u, counts, want):
+    """Launch counts as expected, logs finite, of the expected shapes, and
+    commands inside the cables' range. Returns (z, u) as numpy."""
+    print(f"[{tag}] launches: {counts}")
+    for name, n in want.items():
+        check(counts[name] == n,
+              f"{tag}: {name} launched {counts[name]} times, expected {n}")
+    z, u = logs["z"].cpu().numpy(), logs["u"].cpu().numpy()
+    check(z.shape == shape_z and u.shape == shape_u,
+          f"{tag}: log shapes {z.shape}, {u.shape}")
+    check(np.isfinite(z).all() and np.isfinite(u).all(),
+          f"{tag}: non-finite logs")
+    check(u.min() >= 0.0 and u.max() <= 1500.0,
+          f"{tag}: command outside [0, 1500]")
+    return z, u
+
+
+def cpu_agreement(tag, name, got, ref, tol):
+    """Difference of a card run's logged z from the f64 CPU run's, relative
+    to the CPU run's variation about its mean over time (and batch)."""
+    axes = tuple(range(ref.ndim - 1))
+    agree = float(np.linalg.norm(got - ref)
+                  / np.linalg.norm(ref - ref.mean(axis=axes)))
+    print(f"[{tag}] {name} card vs f64 CPU rel z difference {agree:.3e} "
+          f"(tol {tol})")
+    check(agree <= tol, f"{tag}: {name} card vs CPU difference {agree}")
+    return agree
+
+
+def phase_fused(tag, mpc, model64, zt, card, want, cpu_tol, n_timed):
+    """A batch-fused loop (build_fused) at B_MAIN for N_WIN windows."""
+    path = "condensed" if mpc.formulation == "condensed" else "A"
     run = mpc.build_fused(N_WIN)
     x0 = torch.zeros((B_MAIN, mpc.n_x), dtype=torch.float32,
                      device=mpc.device)
-    admm_batched.launches = 0
-    tpwl_select.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     logs = run(x0, x0, zt)
     torch.cuda.synchronize()
-    launches = {"admm_batched": admm_batched.launches,
-                "tpwl_select": tpwl_select.launches}
-    print(f"[main] launches in one build_fused run of {N_WIN} windows at "
-          f"B={B_MAIN}: {launches}")
-    for name, want in (("admm_batched", 4 * N_WIN),
-                       ("tpwl_select", (1 + N_REPLAN) * N_WIN)):
-        check(launches[name] == want,
-              f"{name} launched {launches[name]} times, expected {want}")
-    z, u = logs["z"].cpu().numpy(), logs["u"].cpu().numpy()
-    check(z.shape == (B_MAIN, N_WIN * N_REPLAN, mpc.n_z)
-          and u.shape == (B_MAIN, N_WIN * N_REPLAN, mpc.n_u),
-          f"log shapes {z.shape}, {u.shape}")
-    check(np.isfinite(z).all() and np.isfinite(u).all(), "non-finite logs")
-    check(u.min() >= 0.0 and u.max() <= 1500.0, "command outside [0, 1500]")
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    T = N_WIN * N_REPLAN
+    z, _ = check_logs(tag, logs, (B_MAIN, T, mpc.n_z), (B_MAIN, T, mpc.n_u),
+                      counts, {k: v * N_WIN for k, v in want.items()})
     track = rel_track(z, zt)
-    print(f"[main] rel tracking error {track:.5f} (gate {QUALITY_GATE})")
-    check(track <= QUALITY_GATE, f"rel tracking error {track}")
+    print(f"[{tag}] rel tracking error {track:.5f} (gate {QUALITY_GATE}); "
+          f"peak device memory {peak_gb:.2f} GB")
+    check(track <= QUALITY_GATE, f"{tag}: rel tracking error {track}")
 
-    # host clock around whole runs: the loop is host-bound (see below), so
-    # the spread of ten runs is kept beside their median
+    # host clock around whole runs: the spread is kept beside the median
     runs_ms = []
-    for _ in range(10):
+    for _ in range(n_timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(x0, x0, zt)
@@ -288,10 +437,11 @@ def phase_main(mpc, model64, zt, card):
         runs_ms.append(1e3 * (time.perf_counter() - t0))
     t_run = float(np.median(runs_ms)) / 1e3
     windows_per_s = B_MAIN * N_WIN / t_run
-    print(f"[main] {windows_per_s:.1f} windows/s (median of 10 runs: "
-          f"{1e3 * t_run:.2f} ms per {N_WIN}-window run at B={B_MAIN}, f32; "
-          f"min {min(runs_ms):.2f}, max {max(runs_ms):.2f} ms) [{card}]")
-    out = dict(launches=launches, rel_track=track,
+    print(f"[{tag}] {windows_per_s:.1f} windows/s (median of {n_timed} "
+          f"runs: {1e3 * t_run:.2f} ms per {N_WIN}-window run at "
+          f"B={B_MAIN}, f32; min {min(runs_ms):.2f}, max "
+          f"{max(runs_ms):.2f} ms) [{card}]")
+    out = dict(launches=counts, rel_track=track, peak_memory_gb=peak_gb,
                windows_per_s=windows_per_s, run_ms=1e3 * t_run,
                runs_ms=runs_ms)
 
@@ -312,22 +462,63 @@ def phase_main(mpc, model64, zt, card):
                top_device_ops=[{"name": e.key[:90],
                                 "ms": e.self_device_time_total / 1e3,
                                 "calls": e.count} for e in top])
-    print(f"[main] device busy {dev_ms:.2f} ms of {1e3 * t_run:.2f} ms per "
+    print(f"[{tag}] device busy {dev_ms:.2f} ms of {1e3 * t_run:.2f} ms per "
           f"run (share {out['device_busy_share']:.3f}); top device time:")
     for e in out["top_device_ops"]:
-        print(f"[main]   {e['ms']:8.3f} ms  {e['calls']:5d}x  {e['name']}")
+        print(f"[{tag}]   {e['ms']:8.3f} ms  {e['calls']:5d}x  {e['name']}")
 
-    # the same loop at B=8 against the port's f64 run on the CPU
-    cpu_mpc = make_mpc(model64.to(device="cpu"), torch.float64, "cpu")
+    # the same loop at B=8, in f32 and in f64 on the card, against the
+    # port's f64 run on the CPU
+    cpu_mpc = make_mpc(model64.to(device="cpu"), torch.float64, "cpu", path)
     x0c = np.zeros((B_CPU, mpc.n_x))
     ref = cpu_mpc.build_fused(N_WIN)(x0c, x0c, zt[:B_CPU])["z"].numpy()
-    got = run(x0[:B_CPU], x0[:B_CPU], zt[:B_CPU])["z"].cpu().numpy()
-    agree = float(np.linalg.norm(got - ref)
-                  / np.linalg.norm(ref - ref.mean(axis=(0, 1))))
-    print(f"[main] B={B_CPU}: f32 card vs f64 CPU rel z difference "
-          f"{agree:.3e} (tol {CPU_AGREE_TOL})")
-    check(agree <= CPU_AGREE_TOL, f"card vs CPU difference {agree}")
-    out["cpu_rel_diff"] = agree
+    run64 = make_mpc(model64, torch.float64, mpc.device,
+                     path).build_fused(N_WIN)
+    for name, fn, tol in (("f32", run, cpu_tol),
+                          ("f64", run64, F64_CPU_AGREE_TOL)):
+        got = fn(x0c, x0c, zt[:B_CPU])["z"].cpu().numpy()
+        out[f"cpu_rel_diff_{name}"] = cpu_agreement(
+            tag, f"B={B_CPU} {name}", got, ref, tol)
+    return out
+
+
+def phase_single_loop(mpc, model64, zt1, card):
+    """Path B: the single-trajectory loop (build) for N_WIN_B windows."""
+    run = mpc.build(N_WIN_B)
+    x0 = torch.zeros(mpc.n_x, dtype=torch.float32, device=mpc.device)
+    reset_counts()
+    logs = run(x0, x0, zt1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    T = N_WIN_B * N_REPLAN
+    z, _ = check_logs("path B", logs, (T, mpc.n_z), (T, mpc.n_u), counts,
+                      {"admm_single": N_WIN_B, "admm_stream": 0,
+                       "admm_batched": 0,
+                       "tpwl_select": (1 + N_REPLAN) * N_WIN_B})
+    track = rel_track(z[None], zt1[None])
+    runs_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(x0, x0, zt1)
+        torch.cuda.synchronize()
+        runs_ms.append(1e3 * (time.perf_counter() - t0))
+    ms_win = float(np.median(runs_ms)) / N_WIN_B
+    print(f"[path B] {ms_win:.3f} ms per window (host clock, median of 5 "
+          f"runs of {N_WIN_B} windows, f32; runs {min(runs_ms):.2f} to "
+          f"{max(runs_ms):.2f} ms); rel tracking error {track:.5f} (not "
+          f"gated: R = 1e-3 I trades tracking for effort) [{card}]")
+    cpu_mpc = make_mpc(model64.to(device="cpu"), torch.float64, "cpu", "B")
+    x0c = np.zeros(mpc.n_x)
+    ref = cpu_mpc.build(N_WIN_B)(x0c, x0c, zt1)["z"].numpy()
+    z64 = make_mpc(model64, torch.float64, mpc.device, "B").build(N_WIN_B)(
+        x0c, x0c, zt1)["z"].cpu().numpy()
+    out = dict(launches=counts, ms_per_window=ms_win, runs_ms=runs_ms,
+               rel_track=track)
+    for name, got, tol in (("f32", z, PATH_B_CPU_AGREE_TOL),
+                           ("f64", z64, F64_CPU_AGREE_TOL)):
+        out[f"cpu_rel_diff_{name}"] = cpu_agreement("path B", name, got,
+                                                    ref, tol)
     return out
 
 
@@ -368,7 +559,10 @@ def main():
     print(f"[model] campaign P={model.num_points}, n_x={model.state_dim}, "
           f"n_u={model.input_dim}, n_y={mpc.n_y}, n_z={mpc.n_z}; BatchMPC "
           f"set-up (1087 DARE gains) {time.perf_counter() - t0:.2f} s")
-    zt = feasible_targets(model, B_MAIN)
+    mpc_a = make_mpc(model, torch.float32, dev, "A")
+    mpc_b = make_mpc(model, torch.float32, dev, "B")
+    zt = feasible_targets(model, B_MAIN, N_WIN)
+    zt_b = feasible_targets(model, 1, N_WIN_B)[0]
 
     # states near the dictionary: its points plus seeded noise
     rng = np.random.default_rng(3)
@@ -379,35 +573,65 @@ def main():
                             device=dev)
     x_near = X_pts[pts] + 0.05 * X_pts.std(dim=0) * noise
 
-    # 3.-5.
-    rec["admm_batched"] = phase_admm(make_mpc(model64, torch.float64, dev),
-                                     mpc, x_near[:B_MAIN], zt, card)
+    # 3.-6. every kernel against its plain version
+    rec["admm_batched"] = phase_admm(
+        admm_batched, make_mpc(model64, torch.float64, dev), mpc, x_near, zt,
+        card, (B_MAIN, 1, 3), ADMM_F32_TOL, 50)
     rec["tpwl_select"] = phase_select(model64, model, x_near, card)
-    rec["main"] = phase_main(mpc, model64, zt, card)
+    rec["admm_stream"] = phase_admm(
+        admm_stream, make_mpc(model64, torch.float64, dev, "A"), mpc_a,
+        x_near, zt, card, (64, 1, 3), SPARSE_F32_TOL, 5)
+    rec["admm_single"] = phase_single(
+        make_mpc(model64, torch.float64, dev, "B"), mpc_b, x_near, zt, card)
+    torch.cuda.empty_cache()
 
-    k1, k2 = rec["admm_batched"], rec["tpwl_select"][f"B={N * B_MAIN}"]
-    launches = rec["main"]["launches"]
+    # 7.-9. the paths
+    plan_tick = {"tpwl_select": 1 + N_REPLAN, "admm_single": 0}
+    rec["condensed"] = phase_fused(
+        "condensed", mpc, model64, zt, card,
+        {"admm_batched": 4, "admm_stream": 0, **plan_tick}, CPU_AGREE_TOL, 10)
+    rec["path_a"] = phase_fused(
+        "path A", mpc_a, model64, zt, card,
+        {"admm_batched": 0, "admm_stream": 4, **plan_tick},
+        PATH_A_CPU_AGREE_TOL, 5)
+    rec["path_b"] = phase_single_loop(mpc_b, model64, zt_b, card)
+
+    k2 = rec["tpwl_select"][f"B={N * B_MAIN}"]
+    paths = {"condensed": rec["condensed"]["launches"],
+             "path_a": rec["path_a"]["launches"],
+             "path_b": rec["path_b"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
+    ref = "soft_robot_control_tpu/ops/"
+
+    def entry(name, replaces, path, err, k):
+        """One kernel's record; `launches` is the count on the path that
+        the kernel carries, `launches_by_path` the count on each."""
+        return {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                "replaces": ref + replaces, "launches": paths[path][name],
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None}
+
+    # library_ms: no single PyTorch call computes a fixed-iteration ADMM
+    # or a select-then-gather. tpwl_select's max_abs_err is over the
+    # gathered rows where the indices agree; phase 4 fails on any index
+    # difference that is not a near-tie
     kernels = [
-        {"name": "admm_batched", "route": "cuda",
-         "source": src + "admm_batched.cu",
-         "replaces": "soft_robot_control_tpu/ops/pallas_admm.py:132",
-         "launches": launches["admm_batched"],
-         "max_abs_err": k1[f"float32 B={B_MAIN}"]["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None},
-        # max_abs_err: over the gathered rows where the indices agree;
-        # phase 4 fails on any index difference that is not a near-tie
-        {"name": "tpwl_select", "route": "cuda",
-         "source": src + "tpwl_select.cu",
-         "replaces": "soft_robot_control_tpu/ops/pallas_tpwl.py:24",
-         "launches": launches["tpwl_select"],
-         "max_abs_err": rec["tpwl_select"]["float32"]["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None},
+        entry("admm_batched", "pallas_admm.py:132", "condensed",
+              rec["admm_batched"][f"float32 B={B_MAIN}"]["max_abs_err"],
+              rec["admm_batched"]),
+        entry("tpwl_select", "pallas_tpwl.py:24", "condensed",
+              rec["tpwl_select"]["float32"]["max_abs_err"], k2),
+        entry("admm_stream", "pallas_admm.py:94", "path_a",
+              rec["admm_stream"]["float32 B=64"]["max_abs_err"],
+              rec["admm_stream"]),
+        entry("admm_single", "pallas_admm.py:28", "path_b",
+              rec["admm_single"]["float32"]["max_abs_err"],
+              rec["admm_single"]),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:

@@ -1,25 +1,29 @@
 """Batched closed-loop MPC + EKF on a TPWL model.
 
-B independent closed loops (TPWL model as plant, EKF, one condensed LOCP
-solve per window) advance together along a leading batch axis. Each
-replanning window does:
+B independent closed loops (TPWL model as plant, EKF, one LOCP solve per
+window) advance together along a leading batch axis. Each replanning window
+does:
 
 1. shift the last plan by N_replan steps;
 2. fetch the nearest dictionary point's (A_d, B_d, d_d) for every plan
    state of every loop, in one launch of the TPWL select kernel;
-3. assemble the condensed QP and Ruiz-equilibrate it;
-4. run `rho_stages` stages of fixed-iteration ADMM, each one launch of the
-   batched ADMM kernel with a fresh K^-1, with the per-loop rho folded
-   into the constraint rows;
+3. assemble the QP, sparse (states kept as variables, scp/locp.py) or
+   condensed (states eliminated, scp/locp_condensed.py), and
+   Ruiz-equilibrate it;
+4. solve it with fixed-iteration ADMM. The batch-fused loop
+   (`build_fused`) runs `rho_stages` stages, each one launch of the batched
+   ADMM kernel with a fresh K^-1 and the per-loop rho folded into the
+   constraint rows. The loop of `build` and `run_batch` picks the sparse
+   QP's solver from `use_pallas` (the single-QP M1 kernel, one launch per
+   loop) and `x_step` ('kinv': the staged kernel path, 'chol': a Cholesky
+   solve every iteration);
 5. run N_replan ticks: DARE-gain feedback at the plan point, command
    clamp, plant step, EKF predict and correct. The three nearest-point
    lookups of a tick (plan point, plant state, estimate) go through one
    select launch.
 
 The semantics are those of the JAX package's BatchMPC (real-time mode:
-one LOCP per query, plan feedback with per-point DARE gains). Only the
-condensed formulation is ported; the sparse one and `use_pallas=True`
-raise NotImplementedError.
+one LOCP per query, plan feedback with per-point DARE gains).
 """
 
 from __future__ import annotations
@@ -30,15 +34,71 @@ import torch
 from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
 from soft_robot_control_tpu_torch.estimators.ekf import EKFState, ekf_correct
 from soft_robot_control_tpu_torch.lqr.riccati import dare
-from soft_robot_control_tpu_torch.ops.admm_batched import admm_batched
-from soft_robot_control_tpu_torch.qp.admm import (RHO_MAX, RHO_MIN,
-                                                  _ruiz_equilibrate)
+from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
+                                                           admm_batched_plain)
+from soft_robot_control_tpu_torch.ops.admm_single import admm_fixed_single
+from soft_robot_control_tpu_torch.qp.admm import (OSQP_RHO_EQ_SCALE, RHO_MAX,
+                                                  RHO_MIN, _ruiz_equilibrate)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv
+from soft_robot_control_tpu_torch.scp.locp import LOCPParams, LOCPSpec
 from soft_robot_control_tpu_torch.scp.locp_condensed import (CondensedParams,
                                                              CondensedSpec)
 from soft_robot_control_tpu_torch.utils.device import as_tensor, resolve_device
 
-_TODO = " is not ported yet (see ROADMAP.md, modules to port, item 8)"
+
+def admm_fixed(P, q, A, l, u, w0, y0, rho_vec, iters: int, sigma=1e-6,
+               alpha=1.6):
+    """Warm-started fixed-iteration ADMM for a batch of QPs (OSQP update
+    rule, no termination check): K is factored once and every iteration
+    solves with the Cholesky factor. P (B,n,n), A (B,m,n), q, w0 (B,n),
+    l, u, y0 (B,m), rho_vec (m,) or (B,m). Returns (w, y)."""
+    n = P.shape[-1]
+    At = A.transpose(-1, -2)
+    K = (P + sigma * torch.eye(n, dtype=P.dtype, device=P.device)
+         + (At * rho_vec[..., None, :]) @ A)
+    chol = torch.linalg.cholesky(K)
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    w, y = w0, y0
+    z = torch.clamp(mv(A, w), l, u)
+    for _ in range(int(iters)):
+        rhs = sigma * w - q + mv(At, rho_vec * z - y)
+        w_t = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+        z_t = mv(A, w_t)
+        w = alpha * w_t + (1 - alpha) * w
+        z_rel = alpha * z_t + (1 - alpha) * z
+        z_new = torch.clamp(z_rel + y / rho_vec, l, u)
+        y = y + rho_vec * (z_rel - z_new)
+        z = z_new
+    return w, y
+
+
+def admm_fixed_kinv(Kinv, q, A, l, u, w0, y0, rho_vec, iters: int,
+                    sigma=1e-6, alpha=1.6):
+    """Fixed-iteration ADMM with a precomputed K^-1 (B,n,n), in plain
+    PyTorch: every iteration is mat-vecs and element-wise updates. rho_vec
+    (m,) or (B,m)."""
+    return admm_batched_plain(Kinv, A, q, l, u, rho_vec, w0, y0, iters,
+                              sigma, alpha)
+
+
+def admm_staged_kinv(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
+                     stages: int = 1, sigma=1e-6, alpha=1.6):
+    """Fixed-total-iteration ADMM with `stages` rho re-balancing points, in
+    plain PyTorch with the per-row rho kept explicit: run iters/stages
+    iterations, re-balance each QP's rho from its scaled residual ratio,
+    rebuild K^-1, repeat. `admm_staged_batched` computes the same through
+    the kernel with the rho folded into the rows."""
+    per = max(1, iters // stages)
+    rho = rho0_vec.expand(l.shape)
+    w, y = w0, y0
+    for s in range(stages):
+        Kinv = make_kinv(P, A, rho, sigma)
+        w, y = admm_fixed_kinv(Kinv, q, A, l, u, w, y, rho, per, sigma,
+                               alpha)
+        if s < stages - 1:
+            mult = _rho_multiplier(P, q, A, l, u, w, y)
+            rho = torch.clamp(rho * mult[:, None], RHO_MIN, RHO_MAX)
+    return w, y
 
 
 def equilibrate_qp(P, q, A, l, u, w0, y0, iters: int = 6):
@@ -94,32 +154,41 @@ def admm_staged_batched(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
 
 
 class BatchMPC:
-    """Batched closed-loop MPC + EKF on a TPWL model (condensed LOCP)."""
+    """Batched closed-loop MPC + EKF on a TPWL model."""
 
     def __init__(self, model, Qz, R, N: int, dt: float, N_replan: int = 1,
-                 U=None, dU=None, rho: float = 0.1, qp_iters: int = 100,
-                 scp_iters: int = 1, W=None, V=None, Qk=None, Rk=None,
+                 U=None, dU=None, x_char=None, rho: float = 0.1,
+                 qp_iters: int = 100, scp_iters: int = 1,
+                 W=None, V=None, Qk=None, Rk=None,
+                 delta0: float = 1e4, omega0: float = 1.0,
                  trust_region: bool = False, use_pallas: bool = False,
-                 formulation: str = "condensed", scaling_iters: int = 6,
-                 rho_stages: int = 1, dtype=torch.float32, device="cuda"):
+                 x_step: str = "chol", formulation: str = "sparse",
+                 scaling_iters: int = 6, rho_stages: int = 1,
+                 dtype=torch.float32, device="cuda"):
         """
         model: TPWLModel with output and measurement models set; it is
                pre-discretized at dt, cast to dtype and moved to device.
         Qz, R: MPC cost. Qk, Rk: feedback-gain cost (default H'QzH, R).
         W, V: EKF covariances.
+        formulation: 'sparse' keeps x as QP variables; 'condensed'
+            eliminates them by forward substitution, with the same optimum
+            when there is no trust region.
+        use_pallas: `build`/`run_batch` solve the sparse QP with the
+            single-QP M1 kernel (the name is the JAX package's).
+        x_step: otherwise, the sparse QP's x-step in `build`/`run_batch`:
+            'chol' (a Cholesky solve per iteration) or 'kinv' (K^-1
+            precomputed per rho stage; the batched kernel on a card).
+        delta0, omega0, x_char: trust-region radius, slack weight and state
+            scale of the sparse QP with trust_region=True.
         """
-        if formulation == "sparse":
-            raise NotImplementedError("formulation='sparse'" + _TODO)
-        if formulation != "condensed":
+        if formulation not in ("sparse", "condensed"):
             raise ValueError(f"unknown formulation {formulation!r}")
-        if use_pallas:
-            raise NotImplementedError(
-                "use_pallas=True (the sparse single-QP kernel) is not ported "
-                "yet (see ROADMAP.md, TPU kernels to port, item 4)")
-        if trust_region:
+        if formulation == "condensed" and trust_region:
             raise NotImplementedError(
                 "the condensed formulation eliminates x, so the trust "
                 "region (a constraint on x) needs the sparse spec")
+        if x_step not in ("chol", "kinv"):
+            raise ValueError(f"unknown x_step {x_step!r}")
         dev = resolve_device(device)
         self.device, self.dtype = dev, dtype
         self.dt = float(dt)
@@ -136,16 +205,35 @@ class BatchMPC:
         self.scp_iters = int(scp_iters)
         self.scaling_iters = int(scaling_iters)
         self.rho_stages = int(rho_stages)
+        self.formulation = formulation
+        self.use_pallas = bool(use_pallas)
+        self.x_step = x_step
+        self.delta0, self.omega0 = float(delta0), float(omega0)
         # executed-command clamp: actuation limits on the final command
         # (the DARE feedback term lies outside the QP's constraint set)
         self.u_clamp = None
         if isinstance(U, HyperRectangle):
             self.u_clamp = (t(-U.b[1::2]), t(U.b[0::2]))
-        self.cspec = CondensedSpec(self.N, m.H, Qz, R, U=U, dU=dU,
-                                   dtype=dtype, device=dev)
-        # all rows are inequalities: no equality-rho boost
-        self.rho_vec_c = torch.full((self.cspec.n_con,), rho, dtype=dtype,
-                                    device=dev)
+        if formulation == "condensed":
+            self.cspec = CondensedSpec(self.N, m.H, Qz, R, U=U, dU=dU,
+                                       dtype=dtype, device=dev)
+            # all rows are inequalities: no equality-rho boost
+            self.rho_vec_c = torch.full((self.cspec.n_con,), rho,
+                                        dtype=dtype, device=dev)
+        else:
+            # the trust region is inert in the real-time single-LOCP mode
+            # (delta0=1e4 never binds); without it the QP has a third of
+            # the rows
+            spec = LOCPSpec(self.N, m.H, Qz, R, U=U, dU=dU, x_char=x_char,
+                            is_tr_active=trust_region, dtype=dtype,
+                            device=dev)
+            self.spec = spec
+            # per-row rho: the equalities get the OSQP 1e3 boost
+            rho_vec = np.full(spec.n_con, rho)
+            nx = self.n_x
+            rho_vec[spec.r_init:spec.r_init + nx] *= OSQP_RHO_EQ_SCALE
+            rho_vec[spec.r_dyn:spec.r_dyn + self.N * nx] *= OSQP_RHO_EQ_SCALE
+            self.rho_vec = t(rho_vec)
         self.W = t(W) if W is not None else 100.0 * torch.eye(
             self.n_x, dtype=dtype, device=dev)
         self.V = t(V) if V is not None else torch.eye(
@@ -154,6 +242,7 @@ class BatchMPC:
         Qk = t(Qk) if Qk is not None else m.H.T @ Qz @ m.H
         Rk = t(Rk) if Rk is not None else R
         self.K_pts, _ = dare(m.A_d, m.B_d, Qk, Rk)
+        self._run = None
 
     # ------------------------------------------------------------------
     def _shift_plan(self, x_plan, u_plan):
@@ -175,29 +264,61 @@ class BatchMPC:
                 Bm.reshape(Bsz, self.N, n, self.n_u),
                 d.reshape(Bsz, self.N, n))
 
-    def _mpc_query_batched(self, x0, x_plan, u_plan, z_win, warm):
-        """One condensed LOCP solve per loop, linearized along its shifted
-        plan. z_win holds absolute targets (B, N+1, n_z)."""
+    def _qp_dims(self):
+        spec = self.cspec if self.formulation == "condensed" else self.spec
+        return spec.n_var, spec.n_con
+
+    def _solve_qp(self, P, q, A, l, u, w0, y0, fused: bool):
+        """The window's (already equilibrated) QPs through the solver that
+        the formulation, the loop and the options select."""
+        if self.formulation == "condensed":
+            return admm_staged_batched(P, q, A, l, u, w0, y0, self.rho_vec_c,
+                                       self.qp_iters, self.rho_stages)
+        if fused or (not self.use_pallas and self.x_step == "kinv"):
+            return admm_staged_batched(P, q, A, l, u, w0, y0, self.rho_vec,
+                                       self.qp_iters, self.rho_stages)
+        if self.use_pallas:
+            sols = [admm_fixed_single(P[b], q[b], A[b], l[b], u[b], w0[b],
+                                      y0[b], self.rho_vec, self.qp_iters)
+                    for b in range(q.shape[0])]
+            return (torch.stack([w for w, _ in sols]),
+                    torch.stack([y for _, y in sols]))
+        return admm_fixed(P, q, A, l, u, w0, y0, self.rho_vec, self.qp_iters)
+
+    def _mpc_query_batched(self, x0, x_plan, u_plan, z_win, warm,
+                           fused: bool):
+        """One LOCP solve per loop, linearized along its shifted plan.
+        z_win holds absolute targets (B, N+1, n_z)."""
         x_plan, u_plan = self._shift_plan(x_plan, u_plan)
         z_win = z_win - self.model.z_ref
-        cspec = self.cspec
         Bsz = x0.shape[0]
+        condensed = self.formulation == "condensed"
+        zeros = lambda *shape: torch.zeros((Bsz,) + shape, dtype=self.dtype,
+                                           device=self.device)
         for _ in range(self.scp_iters):
             w0, y0 = warm
             Ad, Bd, dd = self._gather_traj(x_plan)
-            P, q, A, l, u, _, xfree, G = cspec.assemble(CondensedParams(
-                Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z_win,
-                u_des=torch.zeros_like(u_plan)))
+            if condensed:
+                P, q, A, l, u, _, xfree, G = self.cspec.assemble(
+                    CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z_win,
+                                    u_des=zeros(self.N, self.n_u)))
+            else:
+                P, q, A, l, u, _ = self.spec.assemble(LOCPParams(
+                    Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_plan,
+                    delta=self.delta0, omega=self.omega0, z=z_win,
+                    zf=zeros(self.n_z), u_des=zeros(self.N, self.n_u)))
             if self.scaling_iters > 0:
                 P, q, A, l, u, w0, y0, (d_s, e_s, c_s) = equilibrate_qp(
                     P, q, A, l, u, w0, y0, self.scaling_iters)
-            w, y = admm_staged_batched(P, q, A, l, u, w0, y0, self.rho_vec_c,
-                                       self.qp_iters, self.rho_stages)
+            w, y = self._solve_qp(P, q, A, l, u, w0, y0, fused)
             if self.scaling_iters > 0:
                 w = d_s * w
                 y = e_s * y / c_s[:, None]
-            u_plan = w.reshape(Bsz, self.N, self.n_u)
-            x_plan = cspec.recover_x(xfree, G, w)
+            if condensed:
+                u_plan = w.reshape(Bsz, self.N, self.n_u)
+                x_plan = self.cspec.recover_x(xfree, G, w)
+            else:
+                x_plan, u_plan, _ = self.spec.split(w)
             warm = (w, y)
         return x_plan, u_plan, warm
 
@@ -224,20 +345,12 @@ class BatchMPC:
         return x_next, ekf, z, u
 
     # ------------------------------------------------------------------
-    def build_fused(self, n_windows: int, noise_std: float = 0.0):
-        """The batched closed loop over n_windows replanning windows:
-
-            run(x_plant0 (B,n_x), ekf_x0 (B,n_x),
-                z_target (B,n_windows,N+1,n_z), noise=None, generator=None)
-              -> {"z": (B, n_windows*N_replan, n_z),
-                  "u": (B, n_windows*N_replan, n_u)}
-
-        With noise_std > 0 the measurement noise is `noise_std` times
-        `noise` (n_windows, N_replan, B, n_y) when given, else standard
-        normal draws from `generator`.
-        """
+    def _build_loop(self, n_windows: int, noise_std: float, fused: bool):
+        """The batched closed loop over n_windows replanning windows (see
+        build_fused for its signature)."""
         N, N_rep, n_win = self.N, self.N_replan, int(n_windows)
         dev, dt = self.device, self.dtype
+        n_var, n_con = self._qp_dims()
 
         def run(x_plant0, ekf_x0, z_target, noise=None, generator=None):
             t = lambda a: as_tensor(a, dt, dev)
@@ -254,13 +367,13 @@ class BatchMPC:
             ekf = EKFState(x_e, eye.expand(Bsz, -1, -1))
             x_plan = x_e[:, None].expand(-1, N + 1, -1)
             u_plan = torch.zeros((Bsz, N, self.n_u), dtype=dt, device=dev)
-            warm = (torch.zeros((Bsz, self.cspec.n_var), dtype=dt, device=dev),
-                    torch.zeros((Bsz, self.cspec.n_con), dtype=dt, device=dev))
+            warm = (torch.zeros((Bsz, n_var), dtype=dt, device=dev),
+                    torch.zeros((Bsz, n_con), dtype=dt, device=dev))
             zs, us = [], []
             for w in range(n_win):
                 # replan from the current belief
                 x_plan, u_plan, warm = self._mpc_query_batched(
-                    ekf.x, x_plan, u_plan, z_target[:, w], warm)
+                    ekf.x, x_plan, u_plan, z_target[:, w], warm, fused)
                 for k in range(N_rep):
                     x_p, ekf, z, u = self._tick(
                         x_p, ekf, x_plan, u_plan, k,
@@ -271,26 +384,53 @@ class BatchMPC:
 
         return run
 
+    def build_fused(self, n_windows: int, noise_std: float = 0.0):
+        """The batch-fused closed loop over n_windows replanning windows;
+        every window's QPs go through the staged batched ADMM kernel:
+
+            run(x_plant0 (B,n_x), ekf_x0 (B,n_x),
+                z_target (B,n_windows,N+1,n_z), noise=None, generator=None)
+              -> {"z": (B, n_windows*N_replan, n_z),
+                  "u": (B, n_windows*N_replan, n_u)}
+
+        With noise_std > 0 the measurement noise is `noise_std` times
+        `noise` (n_windows, N_replan, B, n_y) when given, else standard
+        normal draws from `generator`.
+        """
+        return self._build_loop(n_windows, noise_std, fused=True)
+
     def build(self, n_windows: int, noise_std: float = 0.0):
-        """The single-trajectory closed loop, run as the batched one at
-        B = 1:
+        """The single-trajectory closed loop, with the QP solver that
+        `use_pallas` and `x_step` select:
 
             run(x_plant0 (n_x,), ekf_x0 (n_x,), z_target (n_windows,N+1,n_z),
                 noise=None, generator=None) -> {"z": (T, n_z), "u": (T, n_u)}
 
         with T = n_windows*N_replan and `noise` (n_windows, N_replan, n_y).
+        It runs as the batched loop at B = 1; `run_batch` runs the same
+        loop on a batch.
         """
-        fused = self.build_fused(n_windows, noise_std)
+        batched = self._build_loop(n_windows, noise_std, fused=False)
+        self._run = batched
 
         def run(x_plant0, ekf_x0, z_target, noise=None, generator=None):
             t = lambda a: as_tensor(a, self.dtype, self.device)[None]
             if noise is not None:
                 noise = as_tensor(noise)[:, :, None]
-            logs = fused(t(x_plant0), t(ekf_x0), t(z_target), noise,
-                         generator)
+            logs = batched(t(x_plant0), t(ekf_x0), t(z_target), noise,
+                           generator)
             return {k: v[0] for k, v in logs.items()}
 
         return run
+
+    def run_batch(self, x_plant0, ekf_x0, z_target, noise=None,
+                  generator=None):
+        """The loop of the last `build` on a batch: x_plant0, ekf_x0
+        (B, n_x), z_target (B, n_windows, N+1, n_z), noise as for
+        build_fused. Each element's logs are those of `build`'s run."""
+        if self._run is None:
+            raise RuntimeError("call build() first")
+        return self._run(x_plant0, ekf_x0, z_target, noise, generator)
 
 
 def window_targets(z_traj, n_windows: int, N_replan: int, N: int):

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``build/torch_kernels/``
 at the repository root and loaded with ``ctypes``. No PyTorch header is
 included, so a build takes seconds. The library's file name carries a hash
-of its source, so an edited source is rebuilt at its next use. Nothing is
+of its source and headers, so an edited source is rebuilt at its next use. Nothing is
 built or loaded when this module is imported.
 """
 
@@ -35,8 +35,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of `name` goes; the name carries a hash of the
+    source and of every header (csrc/*.cuh) it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

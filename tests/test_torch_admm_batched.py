@@ -1,6 +1,8 @@
-"""Kernel 1 of the port, the batched fixed-iteration ADMM: its plain
-version against the JAX package's Pallas kernel (interpret mode). The CUDA
-kernel is held to the plain version in tests/test_torch_kernels_cuda.py."""
+"""Kernels 1 and 3 of the port, the batched fixed-iteration ADMM for QPs
+that fit shared memory and for those that do not: their one plain version
+against the JAX package's Pallas kernels (interpret mode), the chunked one
+and the per-QP grid. The CUDA kernels are held to the plain version in
+tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
 import jax
@@ -11,9 +13,10 @@ import torch
 import torch_helpers  # noqa: F401  (single-threaded torch)
 
 from soft_robot_control_tpu.control.batch_mpc import make_kinv as jax_make_kinv
-from soft_robot_control_tpu.ops.pallas_admm import admm_batched_pallas
+from soft_robot_control_tpu.ops.pallas_admm import (
+    _admm_batched_pallas_grid, _pick_chunk, admm_batched_pallas)
 from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
-                                                           admm_batched_plain)
+                                                           admm_stream)
 
 
 def _qps(B, n, m, seed, eq_rows=0):
@@ -51,8 +54,32 @@ def test_plain_matches_pallas(B, n, m, eq):
     np.testing.assert_allclose(y2.numpy(), np.asarray(y1), atol=1e-10)
 
 
-def test_wrapper_rejects_other_devices():
+@pytest.mark.parametrize("B,n,m,eq", [(3, 130, 140, 20), (1, 130, 140, 0),
+                                      (2, 60, 200, 8)])
+def test_plain_matches_pallas_grid_at_large_n(B, n, m, eq):
+    """Sizes where the Pallas dispatch finds no chunk and takes the per-QP
+    grid kernel, with one-sided and free rows (infinite bounds) and
+    boosted equality rows, as the sparse LOCP has them. Tolerance 1e-10."""
+    assert _pick_chunk(B, n, m, 8) == 0
+    Kinv, A, q, l, u, rho, w0, y0 = _qps(B, n, m, seed=n, eq_rows=eq)
+    l[:, eq:eq + 10] = -np.inf
+    u[:, eq + 5:eq + 15] = np.inf
+    args = (Kinv, A, q, l, u, rho, w0, y0)
+    w1, y1 = _admm_batched_pallas_grid(*[jnp.asarray(a) for a in args], 60,
+                                       interpret=True)
+    targs = [torch.as_tensor(a) for a in args]
+    for wrapper in (admm_batched, admm_stream):
+        launches = wrapper.launches
+        w2, y2 = wrapper(*targs, 60)
+        assert wrapper.launches == launches  # CPU tensors: no kernel
+        assert torch.isfinite(w2).all() and torch.isfinite(y2).all()
+        np.testing.assert_allclose(w2.numpy(), np.asarray(w1), atol=1e-10)
+        np.testing.assert_allclose(y2.numpy(), np.asarray(y1), atol=1e-10)
+
+
+@pytest.mark.parametrize("wrapper", [admm_batched, admm_stream])
+def test_wrapper_rejects_other_devices(wrapper):
     args = [torch.as_tensor(a).to("meta") for a in _qps(2, 4, 6, seed=0)]
     with pytest.raises(ValueError, match="unsupported device"):
-        admm_batched(*args, 5)
+        wrapper(*args, 5)
 

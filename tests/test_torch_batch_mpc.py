@@ -1,7 +1,9 @@
-"""The port's slice as a whole: the batched condensed MPC+EKF closed loop
-(`build_fused` and `build`) against the JAX package's, noise-free, f64 on
-the CPU, on the chain model and on a 64-point subset of the Diamond
-campaign dictionary at its full widths (r=30, n_u=4, n_y=30, n_z=3)."""
+"""The port's slices as a whole: the batched MPC+EKF closed loop, condensed
+and sparse (`build_fused`, `build` with each of its QP solvers, and
+`run_batch`), against the JAX package's, noise-free, f64 on the CPU, on the
+chain model and on a 64-point subset of the Diamond campaign dictionary at
+its full widths (r=30, n_u=4, n_y=30, n_z=3; the sparse QP has n=380
+variables and m=400 rows)."""
 
 import numpy as np
 import jax
@@ -25,37 +27,69 @@ from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
 ATOL = 1e-7
 
 
-def _compare(jax_logs, logs):
+def _compare(jax_logs, logs, atol=ATOL, rel=0.0):
+    """Logs equal to `atol` plus `rel` times the reference log's largest
+    magnitude."""
     for k in ("z", "u"):
         ref = np.asarray(jax_logs[k])
         assert logs[k].shape == ref.shape
-        np.testing.assert_allclose(logs[k].numpy(), ref, atol=ATOL)
+        np.testing.assert_allclose(logs[k].numpy(), ref, rtol=0,
+                                   atol=atol + rel * np.abs(ref).max())
 
 
-def _both(jax_model, model, Qz, R, U=None, **kw):
-    """The JAX and the port BatchMPC at the same settings (f64)."""
-    jmpc = JaxMPC(jax_model, Qz, R, dtype=jnp.float64, x_step="kinv",
-                  formulation="condensed",
-                  U=None if U is None else JaxBox(*U), **kw)
+def _both(jax_model, model, Qz, R, U=None, dU=None, formulation="condensed",
+          x_step="kinv", **kw):
+    """The JAX and the port BatchMPC at the same settings (f64); U and dU
+    are (ub, lb) pairs."""
+    box = lambda Box, b: None if b is None else Box(*b)
+    jmpc = JaxMPC(jax_model, Qz, R, dtype=jnp.float64, x_step=x_step,
+                  formulation=formulation, U=box(JaxBox, U),
+                  dU=box(JaxBox, dU), **kw)
     tmpc = BatchMPC(model, Qz, R, dtype=torch.float64, device="cpu",
-                    formulation="condensed",
-                    U=None if U is None else HyperRectangle(*U), **kw)
+                    x_step=x_step, formulation=formulation,
+                    U=box(HyperRectangle, U), dU=box(HyperRectangle, dU),
+                    **kw)
     jax.block_until_ready(jmpc.K_pts)
     return jmpc, tmpc
 
 
-def _run_both(jmpc, tmpc, n_win, x0B, zt):
+def _run_both(jmpc, tmpc, n_win, x0B, zt, fused=True, batch=False,
+              **tol):
+    """Compare the logs of `build` (always), `build_fused` and
+    `run_batch` (where asked) between the two packages."""
     B = x0B.shape[0]
     keys = jax.random.split(jax.random.PRNGKey(5), B)
-    ref_f = jmpc.build_fused(n_win)(jnp.asarray(x0B), jnp.asarray(x0B),
-                                    jnp.asarray(zt), keys)
-    ref_f = {k: np.asarray(v) for k, v in ref_f.items()}
-    _compare(ref_f, tmpc.build_fused(n_win)(x0B, x0B, zt))
-    ref_1 = jax.jit(jmpc.build(n_win))(jnp.asarray(x0B[0]),
-                                       jnp.asarray(x0B[0]),
-                                       jnp.asarray(zt[0]), keys[0])
+    jx, jz = jnp.asarray(x0B), jnp.asarray(zt)
+    if fused:
+        ref_f = jmpc.build_fused(n_win)(jx, jx, jz, keys)
+        ref_f = {k: np.asarray(v) for k, v in ref_f.items()}
+        _compare(ref_f, tmpc.build_fused(n_win)(x0B, x0B, zt), **tol)
+    ref_1 = jax.jit(jmpc.build(n_win))(jx[0], jx[0], jz[0], keys[0])
     ref_1 = {k: np.asarray(v) for k, v in ref_1.items()}
-    _compare(ref_1, tmpc.build(n_win)(x0B[0], x0B[0], zt[0]))
+    _compare(ref_1, tmpc.build(n_win)(x0B[0], x0B[0], zt[0]), **tol)
+    if batch:
+        ref_b = jmpc.run_batch(jx, jx, jz, keys)
+        ref_b = {k: np.asarray(v) for k, v in ref_b.items()}
+        _compare(ref_b, tmpc.run_batch(x0B, x0B, zt), **tol)
+
+
+@pytest.fixture
+def pallas_on_cpu(monkeypatch):
+    """Let the JAX package's `BatchMPC(use_pallas=True)` run here: its
+    single-QP Pallas kernel in interpret mode, as tests/test_pallas.py runs
+    it. That kernel rounds every mat-vec to f32 (its dots carry
+    preferred_element_type=float32), so logs that went through it are
+    compared at PALLAS_ATOL; the same loop is held tightly against the
+    Cholesky x-step, which computes the same iteration in full f64."""
+    from functools import partial
+
+    from soft_robot_control_tpu.ops import pallas_admm
+
+    monkeypatch.setattr(pallas_admm, "admm_fixed_pallas", partial(
+        pallas_admm.admm_fixed_pallas, interpret=True))
+
+
+PALLAS_ATOL = 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -65,20 +99,55 @@ def chain():
     return model, float(X[0] @ Hf[0]), x0
 
 
-def test_chain_closed_loop_matches_jax(chain):
+def _chain_case(chain, n_win=5, B=3, **kw):
+    """Both packages' BatchMPC on the chain model, with B constant offset
+    targets."""
     model, z0, x0 = chain
     tm = model_from_arrays(model_arrays(model), device="cpu")
-    n_win, B, dt = 5, 3, 0.02
-    jmpc, tmpc = _both(model, tm, np.array([[100.0]]), 1e-3 * np.eye(4),
-                       U=(3.0 * np.ones(4), np.zeros(4)), N=4, dt=dt,
-                       N_replan=2, qp_iters=40, rho_stages=2,
-                       W=1e-2 * np.eye(model.state_dim),
-                       V=1e-4 * np.eye(model.C.shape[0]))
+    both = _both(model, tm, np.array([[100.0]]), 1e-3 * np.eye(4),
+                 **{**dict(U=(3.0 * np.ones(4), np.zeros(4)), N=4, dt=0.02,
+                           N_replan=2, qp_iters=40,
+                           W=1e-2 * np.eye(model.state_dim),
+                           V=1e-4 * np.eye(model.C.shape[0])), **kw})
     offs = np.random.default_rng(4).uniform(0.03, 0.07, size=B)
     T = n_win * 2 + 4 + 1
     zt = np.stack([window_targets(np.full((T, 1), z0 + o), n_win, 2, 4)
                    for o in offs])
-    _run_both(jmpc, tmpc, n_win, np.tile(x0, (B, 1)), zt)
+    return both, np.tile(x0, (B, 1)), zt
+
+
+def test_chain_closed_loop_matches_jax(chain):
+    (jmpc, tmpc), x0B, zt = _chain_case(chain, rho_stages=2)
+    _run_both(jmpc, tmpc, 5, x0B, zt)
+
+
+# the sparse loop's solvers: the staged K^-1 path (fused, and in build),
+# the single-QP M1 path and the Cholesky path, with and without the trust
+# region, an input-rate polyhedron and a state scale
+SPARSE_CASES = {
+    "kinv_staged": dict(x_step="kinv", rho_stages=2),
+    "use_pallas": dict(use_pallas=True, x_step="chol"),
+    "chol": dict(x_step="chol"),
+    "kinv_trust_region": dict(x_step="kinv", trust_region=True,
+                              delta0=0.5, omega0=10.0,
+                              x_char=np.linspace(0.5, 2.0, 18)),
+    "chol_no_scaling_dU": dict(x_step="chol", scaling_iters=0,
+                               dU=(0.5 * np.ones(4), -0.5 * np.ones(4))),
+}
+
+
+@pytest.mark.parametrize("case", list(SPARSE_CASES))
+def test_chain_sparse_closed_loop_matches_jax(chain, case, pallas_on_cpu):
+    """Sparse `build_fused`, `build` and `run_batch` on the chain model."""
+    (jmpc, tmpc), x0B, zt = _chain_case(chain, n_win=3, B=2,
+                                        formulation="sparse",
+                                        **SPARSE_CASES[case])
+    assert tmpc._qp_dims() == jmpc._qp_dims()
+    _run_both(jmpc, tmpc, 3, x0B, zt, fused=case != "use_pallas", batch=True,
+              atol=PALLAS_ATOL if case == "use_pallas" else ATOL)
+    if case == "use_pallas":  # the M1 iteration equals the Cholesky one
+        jmpc.use_pallas = False
+        _run_both(jmpc, tmpc, 3, x0B, zt, fused=False, batch=True)
 
 
 def test_campaign_subset_closed_loop_matches_jax():
@@ -113,7 +182,7 @@ def test_measurement_noise_is_taken_as_given(chain):
     tm = model_from_arrays(model_arrays(model), device="cpu")
     mpc = BatchMPC(tm, np.array([[100.0]]), 1e-3 * np.eye(4), N=4, dt=0.02,
                    N_replan=2, qp_iters=20, dtype=torch.float64,
-                   device="cpu")
+                   formulation="condensed", device="cpu")
     zt = np.stack([window_targets(np.full((11, 1), z0 + 0.05), 3, 2, 4)] * 2)
     x0B = np.tile(x0, (2, 1))
     run = mpc.build_fused(3, noise_std=1e-3)
@@ -128,11 +197,50 @@ def test_measurement_noise_is_taken_as_given(chain):
     assert torch.equal(g["u"], a["u"])  # same draws from the same seed
 
 
-@pytest.mark.parametrize("kw", [dict(formulation="sparse"),
-                                dict(use_pallas=True),
-                                dict(trust_region=True)])
+@pytest.mark.parametrize("kw", [dict(trust_region=True,
+                                     formulation="condensed")])
 def test_unported_options_raise(chain, kw):
+    """The condensed formulation has no trust region, in either package."""
     tm = model_from_arrays(model_arrays(chain[0]), device="cpu")
     with pytest.raises(NotImplementedError):
         BatchMPC(tm, np.eye(1), np.eye(4), N=2, dt=0.02, device="cpu",
                  dtype=torch.float64, **kw)
+    with pytest.raises(NotImplementedError):
+        JaxMPC(chain[0], np.eye(1), np.eye(4), N=2, dt=0.02,
+               dtype=jnp.float64, **kw)
+
+
+def test_constructor_takes_the_jax_arguments_and_defaults(chain):
+    """Same parameter names, order and defaults as the JAX class (the port
+    adds `device` and spells the dtype in torch), so that the same call
+    builds the same controller: the sparse formulation with the Cholesky
+    x-step."""
+    import inspect
+
+    jp = inspect.signature(JaxMPC.__init__).parameters
+    tp = inspect.signature(BatchMPC.__init__).parameters
+    assert [k for k in tp if k != "device"] == list(jp)
+    for k, v in jp.items():
+        if k != "dtype":
+            assert tp[k].default == v.default, k
+    tm = model_from_arrays(model_arrays(chain[0]), device="cpu")
+    mpc = BatchMPC(tm, np.eye(1), np.eye(4), N=2, dt=0.02, device="cpu")
+    assert (mpc.formulation, mpc.x_step, mpc.use_pallas) == (
+        "sparse", "chol", False)
+    assert mpc._qp_dims() == (3 * 18 + 2 * 4, 3 * 18)
+
+
+@pytest.mark.parametrize("kw", [dict(formulation="dense"),
+                                dict(x_step="lu")])
+def test_unknown_option_values_raise(chain, kw):
+    tm = model_from_arrays(model_arrays(chain[0]), device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        BatchMPC(tm, np.eye(1), np.eye(4), N=2, dt=0.02, device="cpu", **kw)
+
+
+def test_run_batch_needs_build_first(chain):
+    tm = model_from_arrays(model_arrays(chain[0]), device="cpu")
+    mpc = BatchMPC(tm, np.eye(1), np.eye(4), N=2, dt=0.02, device="cpu")
+    with pytest.raises(RuntimeError, match="build"):
+        mpc.run_batch(np.zeros((1, 18)), np.zeros((1, 18)),
+                      np.zeros((1, 1, 3, 1)))

@@ -19,8 +19,11 @@ from torch_helpers import (CAMPAIGN_PARAMS, campaign_dict,  # noqa: F401
 from soft_robot_control_tpu_torch.control.batch_mpc import BatchMPC
 from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
 from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
-from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
-                                                           admm_batched_plain)
+from soft_robot_control_tpu_torch.ops.admm_batched import (
+    admm_batched, admm_batched_plain, admm_stream)
+from soft_robot_control_tpu_torch.ops.admm_single import (admm_single,
+                                                          admm_single_plain,
+                                                          prepare_single)
 from soft_robot_control_tpu_torch.ops.tpwl_select import (
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv
@@ -28,8 +31,9 @@ from soft_robot_control_tpu_torch.qp.blocked import make_kinv
 pytestmark = pytest.mark.cuda
 
 
-def _qps(B, n, m, seed):
-    """Random feasible QPs with K^-1 from the port's make_kinv (f64)."""
+def _qps(B, n, m, seed, inf_rows=0):
+    """Random feasible QPs with K^-1 from the port's make_kinv (f64); the
+    first `inf_rows` rows have no lower bound, the next as many no upper."""
     rng = np.random.default_rng(seed)
     Ph = rng.normal(size=(B, n, n))
     P = torch.as_tensor(Ph @ Ph.transpose(0, 2, 1) + 0.1 * np.eye(n))
@@ -38,11 +42,24 @@ def _qps(B, n, m, seed):
     rho = torch.full((m,), 0.1, dtype=torch.float64)
     A = torch.as_tensor(A)
     Kinv = make_kinv(P, A, rho)
+    l = mid - rng.uniform(0.1, 1, (B, m))
+    u = mid + rng.uniform(0.1, 1, (B, m))
+    l[:, :inf_rows] = -np.inf
+    u[:, inf_rows:2 * inf_rows] = np.inf
     return [Kinv, A, torch.as_tensor(rng.normal(size=(B, n))),
-            torch.as_tensor(mid - rng.uniform(0.1, 1, (B, m))),
-            torch.as_tensor(mid + rng.uniform(0.1, 1, (B, m))), rho,
+            torch.as_tensor(l), torch.as_tensor(u), rho,
             torch.as_tensor(0.1 * rng.normal(size=(B, n))),
             torch.as_tensor(0.1 * rng.normal(size=(B, m)))]
+
+
+def _assert_close(got, ref, dtype, tol):
+    """Max abs error within tol (f64) or tol times the solution's scale
+    (f32: the kernels sum in another order than the plain version)."""
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        scale = 1.0 if dtype == torch.float64 else max(
+            float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= tol * scale
 
 
 @pytest.mark.parametrize("B", [1, 3, 1024])
@@ -55,16 +72,72 @@ def test_admm_kernel_matches_plain(cuda_device, B, dtype, tol):
     w2, y2 = admm_batched_plain(*args, 25)
     torch.cuda.synchronize()
     assert admm_batched.launches == launches + 1
-    for got, ref in ((w1, w2), (y1, y2)):
-        scale = 1.0 if dtype == torch.float64 else max(
-            float(ref.abs().max()), 1.0)
-        assert float((got - ref).abs().max()) <= tol * scale
+    _assert_close((w1, y1), (w2, y2), dtype, tol)
 
 
-def test_admm_kernel_refuses_what_does_not_fit(cuda_device):
-    args = [t.to(cuda_device) for t in _qps(1, 200, 400, seed=0)]
-    with pytest.raises(ValueError, match="shared memory"):
-        admm_batched(*args, 1)
+@pytest.mark.parametrize("B,n,m", [(1, 380, 400), (3, 380, 400),
+                                   (5, 12, 16), (2, 70, 33)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_stream_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
+    """Kernel 3 at the sparse LOCP's size and at sizes that exercise its
+    thread-group layout (several column groups, ragged warps), with
+    infinite bounds."""
+    args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=n,
+                                                   inf_rows=m // 8)]
+    launches = admm_stream.launches
+    got = admm_stream(*args, 25)
+    ref = admm_batched_plain(*args, 25)
+    torch.cuda.synchronize()
+    assert admm_stream.launches == launches + 1
+    _assert_close(got, ref, dtype, tol)
+
+
+def test_admm_batched_dispatches_by_size(cuda_device):
+    """A QP that does not fit a block's shared memory goes to the
+    streaming kernel, one that fits to the shared-memory kernel; both
+    agree with the one plain version."""
+    for (n, m), stream in (((200, 400), True), ((20, 40), False)):
+        args = [t.to(cuda_device) for t in _qps(2, n, m, seed=0)]
+        before = (admm_batched.launches, admm_stream.launches)
+        got = admm_batched(*args, 10)
+        torch.cuda.synchronize()
+        assert (admm_batched.launches - before[0],
+                admm_stream.launches - before[1]) == (
+                    (0, 1) if stream else (1, 0))
+        _assert_close(got, admm_batched_plain(*args, 10), torch.float64,
+                      1e-9)
+
+
+@pytest.mark.parametrize("n,m", [(380, 400), (30, 40), (70, 33)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_single_kernel_matches_plain(cuda_device, n, m, dtype, tol):
+    """Kernel 4 with a boosted rho on equality rows and clamped infinite
+    bounds, from the wrapper's own preparation."""
+    rng = np.random.default_rng(n)
+    Ph = rng.normal(size=(n, n))
+    P = torch.as_tensor(Ph @ Ph.T + 0.1 * np.eye(n))
+    A = torch.as_tensor(rng.normal(size=(m, n)))
+    mid = A.numpy() @ (0.2 * rng.normal(size=n))
+    l = mid - rng.uniform(0.1, 1, m)
+    u = mid + rng.uniform(0.1, 1, m)
+    l[:5] = u[:5]
+    l[5:8] = -np.inf
+    rho = 0.1 * np.ones(m)
+    rho[:5] *= 1000
+    l, u, rho = (torch.as_tensor(a) for a in (l, u, rho))
+    M1, l_f, u_f = prepare_single(P, A, l, u, rho)
+    args = [t.to(cuda_device, dtype) for t in (
+        M1, A, torch.as_tensor(rng.normal(size=n)), l_f, u_f, rho,
+        torch.zeros(n, dtype=torch.float64),
+        torch.zeros(m, dtype=torch.float64))]
+    launches = admm_single.launches
+    got = admm_single(*args, 50)
+    ref = admm_single_plain(*args, 50)
+    torch.cuda.synchronize()
+    assert admm_single.launches == launches + 1
+    _assert_close(got, ref, dtype, tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -107,7 +180,7 @@ def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):
                        dt=0.01, N_replan=2, qp_iters=100, rho_stages=4,
                        U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
                        W=1e-2 * np.eye(60), V=1e-4 * np.eye(30), dtype=dt,
-                       device=dev)
+                       device=dev, formulation="condensed")
         z_ref = model.z_ref.cpu().numpy()
         t = 0.01 * np.arange(n_win * 2 + 6)
         zt = z_ref + 2.0 * np.sin(2 * np.pi * t[:, None] / 0.5)
@@ -123,3 +196,55 @@ def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):
     ref = logs["cpu"]
     diff = np.linalg.norm(logs[str(cuda_device)] - ref)
     assert diff <= 1e-4 * np.linalg.norm(ref - ref.mean(axis=(0, 1)))
+
+
+@pytest.mark.parametrize("path", ["fused", "single_qp"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-2),
+                                       (torch.float64, 1e-6)])
+def test_sparse_closed_loop_on_the_card_matches_the_cpu(cuda_device, path,
+                                                        dtype, tol):
+    """Sparse BatchMPC on a 64-point campaign subset (n=380, m=400): the
+    card's loop goes through the streaming kernel (`build_fused`, four
+    launches a window) or the single-QP kernel (`build` with use_pallas,
+    one launch a window) and agrees with the f64 CPU loop: in f64 to 1e-6
+    of the output's variation, in f32 to 5e-2 of it (the equality rows'
+    1e3 rho boost amplifies f32 rounding in K^-1, and two windows from
+    rest move the output little)."""
+    data = campaign_dict(np.arange(0, 1087, 17)[:64])
+    Cf, Hf = campaign_output_maps()
+    n_win = 2
+    fused = path == "fused"
+    B = 4 if fused else 1
+    kw = (dict(x_step="kinv", qp_iters=100, rho_stages=4) if fused
+          else dict(use_pallas=True, qp_iters=50))
+    logs, counts = {}, {}
+    for dev, dt in ((cuda_device, dtype), ("cpu", torch.float64)):
+        model = from_tpwl_dict(data, params=CAMPAIGN_PARAMS, Cf=Cf, Hf=Hf,
+                               device=dev)
+        mpc = BatchMPC(model, 100.0 * np.eye(3),
+                       (1e-5 if fused else 1e-3) * np.eye(4), N=5, dt=0.01,
+                       N_replan=2,
+                       U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
+                       W=1e-2 * np.eye(60), V=1e-4 * np.eye(30), dtype=dt,
+                       device=dev, **kw)
+        assert mpc._qp_dims() == (380, 400)
+        z_ref = model.z_ref.cpu().numpy()
+        t = 0.01 * np.arange(n_win * 2 + 6)
+        zt = z_ref + 2.0 * np.sin(2 * np.pi * t[:, None] / 0.5)
+        zt = np.stack([np.stack([zt[2 * w:2 * w + 6] for w in range(n_win)])]
+                      * B)
+        admm_batched.launches = admm_stream.launches = 0
+        admm_single.launches = tpwl_select.launches = 0
+        x0 = np.zeros((B, 60))
+        out = (mpc.build_fused(n_win)(x0, x0, zt) if fused
+               else mpc.build(n_win)(x0[0], x0[0], zt[0]))
+        counts[str(dev)] = (admm_batched.launches, admm_stream.launches,
+                            admm_single.launches, tpwl_select.launches)
+        logs[str(dev)] = out["z"].double().cpu().numpy()
+    assert counts[str(cuda_device)] == (
+        (0, 4 * n_win, 0, 3 * n_win) if fused else (0, 0, n_win, 3 * n_win))
+    assert counts["cpu"] == (0, 0, 0, 0)
+    ref = logs["cpu"]
+    diff = np.linalg.norm(logs[str(cuda_device)] - ref)
+    assert diff <= tol * np.linalg.norm(ref - ref.mean(axis=-2,
+                                                       keepdims=True))

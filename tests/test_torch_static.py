@@ -40,7 +40,10 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 24
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"soft_robot_control_tpu_torch/scp/locp.py",
+            "soft_robot_control_tpu_torch/ops/admm_single.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
     assert not {f: r for f, r in bad.items() if r}
@@ -53,6 +56,7 @@ def _entry_points():
     from soft_robot_control_tpu_torch.control.batch_mpc import BatchMPC
     from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
     from soft_robot_control_tpu_torch.rom.pod import POD
+    from soft_robot_control_tpu_torch.scp.locp import LOCP, LOCPSpec
     from soft_robot_control_tpu_torch.scp.locp_condensed import CondensedSpec
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
@@ -61,14 +65,20 @@ def _entry_points():
         "POD": lambda: POD(rom),
         "CondensedSpec": lambda: CondensedSpec(2, np.eye(1), np.eye(1),
                                                np.eye(1)),
+        "LOCPSpec": lambda: LOCPSpec(2, np.eye(1), np.eye(1), np.eye(1)),
+        "LOCP": lambda: LOCP(2, np.eye(1), np.eye(1), np.eye(1)),
         "BatchMPC": lambda: BatchMPC(from_tpwl_dict(CAMPAIGN, device="cpu"),
                                      np.eye(1), np.eye(4), N=2, dt=0.01,
                                      formulation="condensed"),
+        "BatchMPC_sparse": lambda: BatchMPC(
+            from_tpwl_dict(CAMPAIGN, device="cpu"), np.eye(1), np.eye(4),
+            N=2, dt=0.01),
     }
 
 
 @pytest.mark.parametrize("name", ["from_tpwl_dict", "POD", "CondensedSpec",
-                                  "BatchMPC"])
+                                  "LOCPSpec", "LOCP", "BatchMPC",
+                                  "BatchMPC_sparse"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
