@@ -5,20 +5,26 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the four CUDA kernels from soft_robot_control_tpu_torch/csrc, one
+2. build: the five CUDA kernels from soft_robot_control_tpu_torch/csrc, one
    nvcc each, started together;
 3. kernel 1 (batched ADMM, QP resident in shared memory) against its plain
    PyTorch version on condensed QPs (n=20, m=40) that the port assembles
    from the Diamond campaign dictionary, in f64 and f32, at B=1024, 1, 3;
 4. kernel 2 (TPWL select and gather) against its plain version on 5120
    states near the campaign dictionary (P=1087, r=30);
-5. kernel 3 (batched ADMM, QP streamed from device memory) against the same
-   plain version on sparse QPs (n=380, m=400, one-sided rows with infinite
-   bounds) assembled, equilibrated and rho-folded as the fused sparse loop
-   builds them, in f64 and f32, at B=64, 1, 3; timed at B=1024;
-6. kernel 4 (single-QP ADMM through M1) against its plain version on one
-   such QP prepared as the single-trajectory loop prepares it, f64 and
-   f32, 50 iterations;
+5. kernel 3 in its two forms against the same plain version on sparse QPs
+   (n=380, m=400, one-sided rows with infinite bounds) assembled,
+   equilibrated and rho-folded as the fused sparse loop builds them, at
+   B=64, 1, 3, each timed at B=1024 in f32: the streaming form
+   (admm_stream, QP re-read from device memory every iteration) in f64 and
+   f32; the cluster-resident form (admm_cluster, QP held across a
+   thread-block cluster's shared memory) in f32 and, since the f64 QP of
+   that size fits no cluster, in f64 on the same loop's QPs at horizon 3
+   (n=252, m=264). The clusters the card holds at one time are printed,
+   and clusters of 6 and of 8 blocks are timed in turns;
+6. kernel 4 (single-QP ADMM through M1, one cluster) against its plain
+   version on one such QP prepared as the single-trajectory loop prepares
+   it, f64 (walked in place through L2) and f32 (resident), 50 iterations;
 7. the condensed path: BatchMPC, condensed, build_fused at B=1024 for 4
    windows with bench.py's quality-gated settings, on the full campaign
    artifact. The tracking error against dynamically feasible targets must
@@ -28,12 +34,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    the device time of one run goes;
 8. path A, the fused sparse loop: BatchMPC, sparse, build_fused at B=1024
    for 4 windows (K^-1 x-step, 100 iterations in 4 rho stages, 6 Ruiz
-   iterations, R = 1e-5 I), with the same checks through kernels 3 and 2,
-   plus the peak device memory;
+   iterations, R = 1e-5 I), with the same checks through admm_cluster and
+   kernel 2 in f32, plus the peak device memory; its f64 run on the card
+   must go through admm_stream;
 9. path B, the single-trajectory sparse loop: BatchMPC(use_pallas=True),
    build for 10 windows (50 iterations, R = 1e-3 I): one launch of kernel 4
    and three of kernel 2 a window, finite logs, agreement of the f32 and
-   the f64 card runs with the f64 CPU run.
+   the f64 card runs with the f64 CPU run, and a profiler pass.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The last three lines of standard output are the per-kernel JSON
@@ -63,7 +70,8 @@ from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
     from_tpwl_dict, rollout_batch)
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
 from soft_robot_control_tpu_torch.ops.admm_batched import (  # noqa: E402
-    admm_batched, admm_batched_plain, admm_stream)
+    admm_batched, admm_batched_plain, admm_cluster, admm_stream,
+    cluster_max_active, cluster_plan_built)
 from soft_robot_control_tpu_torch.ops.admm_single import (  # noqa: E402
     admm_single, admm_single_plain, prepare_single)
 from soft_robot_control_tpu_torch.ops.tpwl_select import (  # noqa: E402
@@ -77,9 +85,11 @@ from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
 
 ARTIFACT = os.path.join(HERE, "examples", "diamond_tet",
                         "tpwl_model_snapshots.pkl")
-KERNELS = ("admm_batched", "tpwl_select", "admm_stream", "admm_single")
+KERNELS = ("admm_batched", "tpwl_select", "admm_stream", "admm_cluster",
+           "admm_single")
 WRAPPERS = {"admm_batched": admm_batched, "tpwl_select": tpwl_select,
-            "admm_stream": admm_stream, "admm_single": admm_single}
+            "admm_stream": admm_stream, "admm_cluster": admm_cluster,
+            "admm_single": admm_single}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 QUALITY_GATE = 0.05         # bench.py's rel tracking error gate
@@ -102,6 +112,7 @@ PATH_B_CPU_AGREE_TOL = 5e-2
 F64_CPU_AGREE_TOL = 1e-6    # rel z difference, f64 card vs f64 CPU loop
 NEAR_TIE = 1e-6             # f64 relative gap under which indices may differ
 N, N_REPLAN, N_WIN, B_MAIN, B_CPU = 5, 2, 4, 1024, 8
+N_F64_CLUSTER = 3           # horizon whose f64 sparse QP fits a cluster
 N_WIN_B = 10                # windows of the single-trajectory path
 ITERS = 100 // 4            # ADMM iterations per launch (100 in 4 stages)
 ITERS_B = 50                # iterations of the single-QP launch
@@ -146,12 +157,12 @@ def read_counts():
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
-def make_mpc(model, dtype, device, path="condensed"):
+def make_mpc(model, dtype, device, path="condensed", horizon=N):
     """BatchMPC at bench.py's settings: 'condensed' and 'A' (sparse) are
     the quality-gated fused loops, 'B' the single-trajectory sparse loop
     through the single-QP kernel."""
     nz, m_in = model.H.shape[0], model.input_dim
-    kw = dict(N=N, dt=0.01, N_replan=N_REPLAN, scp_iters=1, dtype=dtype,
+    kw = dict(N=horizon, dt=0.01, N_replan=N_REPLAN, scp_iters=1, dtype=dtype,
               U=HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in)),
               W=1e-2 * np.eye(model.state_dim),
               V=1e-4 * np.eye(model.C.shape[0]), device=device)
@@ -194,12 +205,13 @@ def rel_track(z, zt):
 
 def window_qps(mpc, x, zt):
     """The first window's QPs (P, q, A, l, u, w0, y0) as mpc's loop builds
-    them: linearized at the states x (B, n_x), assembled with mpc's spec,
-    Ruiz-equilibrated, with a cold start."""
-    B = x.shape[0]
+    them: linearized at the states x (B, n_x), assembled with mpc's spec
+    over mpc's horizon, Ruiz-equilibrated, with a cold start."""
+    B, N = x.shape[0], mpc.N
     x_plan = x[:, None].expand(-1, N + 1, -1)
     Ad, Bd, dd = mpc._gather_traj(x_plan)
-    z = torch.as_tensor(zt, dtype=x.dtype, device=x.device) - mpc.model.z_ref
+    z = torch.as_tensor(zt[:, :N + 1], dtype=x.dtype,
+                        device=x.device) - mpc.model.z_ref
     zeros = lambda *shape: torch.zeros((B,) + shape, dtype=x.dtype,
                                        device=x.device)
     if mpc.formulation == "condensed":
@@ -247,19 +259,21 @@ def compare(name, tag, got, ref, dtype, tol_f32, f64_scaled=False):
     return {"max_abs_err": err, "scale": scale}
 
 
-def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps):
+def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
+               cluster_sizes=()):
     """A batched ADMM kernel against admm_batched_plain at the batch sizes
-    `sizes`, f64 and f32, then timed at B_MAIN in f32."""
+    `sizes`, f64 (on mpc64's QPs) and f32 (on mpc's), then timed at B_MAIN
+    in f32; `cluster_sizes` are also timed, in turns, where the wrapper
+    takes a cluster size."""
     name = wrapper.__name__
     out = {}
     for m in (mpc64, mpc):
         B_in = B_MAIN if m is mpc else max(sizes)
         args = admm_inputs(m, x_qp[:B_in].to(m.dtype), zt[:B_in, 0])
-        if m is mpc64:
-            n_inf = int(torch.isinf(args[3][0]).sum()
-                        + torch.isinf(args[4][0]).sum())
-            print(f"[{name}] QPs of n={args[2].shape[1]}, "
-                  f"m={args[3].shape[1]} with {n_inf} infinite bounds each")
+        n_inf = int(torch.isinf(args[3][0]).sum()
+                    + torch.isinf(args[4][0]).sum())
+        print(f"[{name}] {str(m.dtype)[6:]} QPs of n={args[2].shape[1]}, "
+              f"m={args[3].shape[1]} with {n_inf} infinite bounds each")
         for B in sizes:
             a = [t[:B] if t.dim() > 1 else t for t in args]
             count = wrapper.launches
@@ -285,6 +299,25 @@ def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps):
     print(f"[{name}] f32 B={B} n={n} m={mc} {ITERS} iters: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}) [{card}]")
+    if cluster_sizes:
+        plan = cluster_plan_built(n, mc, 4)
+        print(f"[{name}] default plan at n={n}, m={mc}, f32: {plan}")
+        out["plan"] = plan
+        out["by_cluster_size"] = {}
+        turns = tuple(cluster_sizes) + tuple(reversed(cluster_sizes))
+        for R in turns:
+            t = cuda_ms(lambda: wrapper(*args, ITERS, cluster_size=R), reps)
+            by = out["by_cluster_size"].setdefault(R, {
+                "max_active_clusters": cluster_max_active(n, mc, 4, R),
+                "block_bytes": cluster_plan_built(n, mc, 4, R)[
+                    "block_bytes"], "ms": []})
+            by["ms"].append(t)
+        for R, by in out["by_cluster_size"].items():
+            waves = -(-B // by["max_active_clusters"])
+            print(f"[{name}] clusters of {R}: {by['block_bytes']} bytes a "
+                  f"block, {by['max_active_clusters']} clusters (QPs) in "
+                  f"flight, {waves} waves at B={B}; "
+                  f"{' / '.join(f'{t:.4f}' for t in by['ms'])} ms [{card}]")
     return out
 
 
@@ -406,8 +439,40 @@ def cpu_agreement(tag, name, got, ref, tol):
     return agree
 
 
-def phase_fused(tag, mpc, model64, zt, card, want, cpu_tol, n_timed):
-    """A batch-fused loop (build_fused) at B_MAIN for N_WIN windows."""
+def profile_device(tag, fn, wall_ms):
+    """Where the device time of one call of fn() goes, by kernel: printed,
+    and returned with the device's busy share of `wall_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    out = dict(device_ms=dev_ms, device_busy_share=dev_ms / wall_ms,
+               device_kernel_launches=sum(e.count for e in events),
+               top_device_ops=[{"name": e.key[:90],
+                                "ms": e.self_device_time_total / 1e3,
+                                "calls": e.count} for e in top])
+    print(f"[{tag}] device busy {dev_ms:.2f} ms of {wall_ms:.2f} ms per "
+          f"run (share {out['device_busy_share']:.3f}) in "
+          f"{out['device_kernel_launches']} device operations; top device "
+          "time:")
+    for e in out["top_device_ops"]:
+        print(f"[{tag}]   {e['ms']:8.3f} ms  {e['calls']:5d}x  {e['name']}")
+    return out
+
+
+def phase_fused(tag, mpc, model64, zt, card, want, want_f64, cpu_tol,
+                n_timed):
+    """A batch-fused loop (build_fused) at B_MAIN for N_WIN windows; `want`
+    and `want_f64` are the launches a window of the f32 run and of the f64
+    run on the card."""
     path = "condensed" if mpc.formulation == "condensed" else "A"
     run = mpc.build_fused(N_WIN)
     x0 = torch.zeros((B_MAIN, mpc.n_x), dtype=torch.float32,
@@ -446,26 +511,7 @@ def phase_fused(tag, mpc, model64, zt, card, want, cpu_tol, n_timed):
                runs_ms=runs_ms)
 
     # where the time of one run goes: device time by kernel
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(x0, x0, zt)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
-    out.update(device_ms=dev_ms, device_busy_share=dev_ms / (1e3 * t_run),
-               top_device_ops=[{"name": e.key[:90],
-                                "ms": e.self_device_time_total / 1e3,
-                                "calls": e.count} for e in top])
-    print(f"[{tag}] device busy {dev_ms:.2f} ms of {1e3 * t_run:.2f} ms per "
-          f"run (share {out['device_busy_share']:.3f}); top device time:")
-    for e in out["top_device_ops"]:
-        print(f"[{tag}]   {e['ms']:8.3f} ms  {e['calls']:5d}x  {e['name']}")
+    out.update(profile_device(tag, lambda: run(x0, x0, zt), 1e3 * t_run))
 
     # the same loop at B=8, in f32 and in f64 on the card, against the
     # port's f64 run on the CPU
@@ -476,9 +522,17 @@ def phase_fused(tag, mpc, model64, zt, card, want, cpu_tol, n_timed):
                      path).build_fused(N_WIN)
     for name, fn, tol in (("f32", run, cpu_tol),
                           ("f64", run64, F64_CPU_AGREE_TOL)):
+        reset_counts()
         got = fn(x0c, x0c, zt[:B_CPU])["z"].cpu().numpy()
+        counts = read_counts()
         out[f"cpu_rel_diff_{name}"] = cpu_agreement(
             tag, f"B={B_CPU} {name}", got, ref, tol)
+        if name == "f64":
+            print(f"[{tag}] f64 B={B_CPU} launches: {counts}")
+            for k, v in want_f64.items():
+                check(counts[k] == v * N_WIN, f"{tag} f64: {k} launched "
+                      f"{counts[k]} times, expected {v * N_WIN}")
+            out["launches_f64"] = counts
     return out
 
 
@@ -493,7 +547,7 @@ def phase_single_loop(mpc, model64, zt1, card):
     T = N_WIN_B * N_REPLAN
     z, _ = check_logs("path B", logs, (T, mpc.n_z), (T, mpc.n_u), counts,
                       {"admm_single": N_WIN_B, "admm_stream": 0,
-                       "admm_batched": 0,
+                       "admm_cluster": 0, "admm_batched": 0,
                        "tpwl_select": (1 + N_REPLAN) * N_WIN_B})
     track = rel_track(z[None], zt1[None])
     runs_ms = []
@@ -515,6 +569,9 @@ def phase_single_loop(mpc, model64, zt1, card):
         x0c, x0c, zt1)["z"].cpu().numpy()
     out = dict(launches=counts, ms_per_window=ms_win, runs_ms=runs_ms,
                rel_track=track)
+    # where the time of one run goes (printed only; the loop is host-bound)
+    out.update(profile_device("path B", lambda: run(x0, x0, zt1),
+                              float(np.median(runs_ms))))
     for name, got, tol in (("f32", z, PATH_B_CPU_AGREE_TOL),
                            ("f64", z64, F64_CPU_AGREE_TOL)):
         out[f"cpu_rel_diff_{name}"] = cpu_agreement("path B", name, got,
@@ -581,24 +638,30 @@ def main():
     rec["admm_stream"] = phase_admm(
         admm_stream, make_mpc(model64, torch.float64, dev, "A"), mpc_a,
         x_near, zt, card, (64, 1, 3), SPARSE_F32_TOL, 5)
+    rec["admm_cluster"] = phase_admm(
+        admm_cluster, make_mpc(model64, torch.float64, dev, "A",
+                               horizon=N_F64_CLUSTER), mpc_a,
+        x_near, zt, card, (64, 1, 3), SPARSE_F32_TOL, 5,
+        cluster_sizes=(6, 8))
     rec["admm_single"] = phase_single(
         make_mpc(model64, torch.float64, dev, "B"), mpc_b, x_near, zt, card)
     torch.cuda.empty_cache()
 
     # 7.-9. the paths
-    plan_tick = {"tpwl_select": 1 + N_REPLAN, "admm_single": 0}
-    rec["condensed"] = phase_fused(
-        "condensed", mpc, model64, zt, card,
-        {"admm_batched": 4, "admm_stream": 0, **plan_tick}, CPU_AGREE_TOL, 10)
+    none = {"tpwl_select": 1 + N_REPLAN, "admm_batched": 0,
+            "admm_cluster": 0, "admm_stream": 0, "admm_single": 0}
+    small = {**none, "admm_batched": 4}
+    rec["condensed"] = phase_fused("condensed", mpc, model64, zt, card,
+                                   small, small, CPU_AGREE_TOL, 10)
     rec["path_a"] = phase_fused(
-        "path A", mpc_a, model64, zt, card,
-        {"admm_batched": 0, "admm_stream": 4, **plan_tick},
-        PATH_A_CPU_AGREE_TOL, 5)
+        "path A", mpc_a, model64, zt, card, {**none, "admm_cluster": 4},
+        {**none, "admm_stream": 4}, PATH_A_CPU_AGREE_TOL, 5)
     rec["path_b"] = phase_single_loop(mpc_b, model64, zt_b, card)
 
     k2 = rec["tpwl_select"][f"B={N * B_MAIN}"]
     paths = {"condensed": rec["condensed"]["launches"],
              "path_a": rec["path_a"]["launches"],
+             "path_a_f64": rec["path_a"]["launches_f64"],
              "path_b": rec["path_b"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
@@ -623,9 +686,12 @@ def main():
               rec["admm_batched"]),
         entry("tpwl_select", "pallas_tpwl.py:24", "condensed",
               rec["tpwl_select"]["float32"]["max_abs_err"], k2),
-        entry("admm_stream", "pallas_admm.py:94", "path_a",
+        entry("admm_stream", "pallas_admm.py:94", "path_a_f64",
               rec["admm_stream"]["float32 B=64"]["max_abs_err"],
               rec["admm_stream"]),
+        entry("admm_cluster", "pallas_admm.py:94", "path_a",
+              rec["admm_cluster"]["float32 B=64"]["max_abs_err"],
+              rec["admm_cluster"]),
         entry("admm_single", "pallas_admm.py:28", "path_b",
               rec["admm_single"]["float32"]["max_abs_err"],
               rec["admm_single"]),

@@ -1,6 +1,7 @@
-// Block-level mat-vecs shared by the ADMM kernels that stream their matrices
-// from device memory / L2 (admm_stream.cu, admm_single.cu). Both walk a
-// row-major matrix so that neighbouring threads read neighbouring addresses.
+// Block-level mat-vecs of the ADMM kernel that streams its matrices from
+// device memory (admm_stream.cu); both walk a row-major matrix so that
+// neighbouring threads read neighbouring addresses. clip and round_up_32
+// also serve the cluster-resident kernels (admm_cluster.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <stddef.h>

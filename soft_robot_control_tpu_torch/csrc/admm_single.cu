@@ -1,4 +1,5 @@
-// Fixed-iteration ADMM for one QP, the x-step applied as M1^T (M1 rhs).
+// Fixed-iteration ADMM for one QP, the x-step applied as M1^T (M1 rhs), on
+// one thread-block cluster with M1 and A resident in its shared memory.
 //
 // Replaces the TPU kernel soft_robot_control_tpu/ops/pallas_admm.py
 // _admm_kernel (entry admm_pallas, wrapper admm_fixed_pallas). Same
@@ -12,120 +13,87 @@
 //
 // What bounds it on an H100: latency. Read once, M1 and A at n=380, m=400
 // are 1.19 MB (0.35 us at 3.35 TB/s), and 50 iterations are 6e7 FLOP (1 us
-// at 67 TFLOP/s), but each iteration is a chain of four dependent mat-vecs
-// with a block barrier between them.
+// at 67 TFLOP/s), but each iteration is a chain of four dependent mat-vecs.
+// The TPU kernel held both matrices in VMEM; one Hopper block cannot (227
+// KB), and a single block that re-reads them from L2 spends its time
+// waiting on dependent batches of L2 loads.
 //
-// Design: one block of up to 1024 threads. The vectors stay in shared
-// memory; M1 and A (1.19 MB, more than a block's 227 KB) are read from L2
-// in every iteration, M1 twice. M1 rhs and A x walk the matrix by rows
-// (one warp per row, shuffle reduction); A^T v and M1^T v walk it by
-// columns (a thread owns a column, G thread groups split the rows), so
-// every read is of consecutive addresses across a warp and no transposed
-// copy exists. One SM's share of the L2 bandwidth sets the time; spreading
-// the rows over a cooperative grid or a cluster is a later redesign.
-#include "admm_matvec.cuh"
+// Design (admm_cluster.cuh has the iteration): one cluster of 8 blocks on
+// 8 SMs, each block owning an eighth of the rows of M1 and of A in its
+// shared memory for all iterations, so that an iteration reads shared
+// memory only and its four mat-vecs run 8 wide. M1 rhs goes by rows and
+// M1^T s by columns over the same slice, so the block needs only its own
+// part of s and the iteration has two exchanges, in which the partial sums
+// of A^T t and of x~ travel through distributed shared memory as bulk
+// copies that signal a transaction barrier in the receiver. Where the
+// matrices do not fit the cluster's shared memory (f64 at n=380: 2.37 MB)
+// the same kernel walks each block's slice in place, through L2, with the
+// rows still spread over 8 SMs.
+#include "admm_cluster.cuh"
 
 namespace {
 
-constexpr size_t kMaxSmem = 232448;  // 227 KB a block may use on Hopper
-constexpr int kMaxThreads = 1024;
+using namespace admm_cluster;
 
-// shared-memory elements: q, w, rhs, M1 rhs, x~ (n each), l, u, z, y, t,
-// rho (m each), column partials (G*n)
-inline size_t smem_elems(int n, int m, int G) {
-  return (5 + (size_t)G) * n + 6 * (size_t)m;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads) admm_single_kernel(
+template <typename T, int V, bool kResident>
+__global__ void __launch_bounds__(kThreads) admm_single_kernel(
     const T* __restrict__ M1, const T* __restrict__ A,
     const T* __restrict__ q, const T* __restrict__ l,
     const T* __restrict__ u, const T* __restrict__ rho,
     const T* __restrict__ w0, const T* __restrict__ y0, T* __restrict__ w_out,
-    T* __restrict__ y_out, int n, int m, int iters, T sigma, T alpha, int G) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sw = sq + n;
-  T* sr = sw + n;   // rhs
-  T* sm = sr + n;   // M1 rhs
-  T* sx = sm + n;   // x~
-  T* sl = sx + n;
-  T* su = sl + m;
-  T* sz = su + m;
-  T* sy = sz + m;
-  T* st = sy + m;   // rho z - y
-  T* sp = st + m;   // rho
-  T* part = sp + m;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
+    T* __restrict__ y_out, int n, int m, int iters, T sigma, T alpha,
+    Plan p) {
+  solve<T, V, kM1, kResident>(M1, A, q, l, u, rho, w0, y0, w_out, y_out, n, m,
+                              iters, sigma, alpha, p);
+}
 
-  for (int i = tid; i < n; i += nthr) {
-    sq[i] = q[i];
-    sw[i] = w0[i];
-  }
-  for (int j = tid; j < m; j += nthr) {
-    sl[j] = l[j];
-    su[j] = u[j];
-    sy[j] = y0[j];
-    sp[j] = rho[j];
-  }
-  __syncthreads();
-  admm::matvec_rows(A, m, n, sw, [&](int j, T acc) {
-    sz[j] = admm::clip(acc, sl[j], su[j]);
-  });
-  __syncthreads();
+// The plan on a full cluster, resident where the matrices fit; false when
+// not even the vectors fit a block's shared memory.
+bool plan_for(int n, int m, int elem, int V, Plan* p) {
+  return make_plan(n, m, elem, kMaxCluster, V, kM1, true, p) ||
+         make_plan(n, m, elem, kMaxCluster, V, kM1, false, p);
+}
 
-  const T one_m_alpha = T(1) - alpha;
-  for (int it = 0; it < iters; ++it) {
-    for (int j = tid; j < m; j += nthr) st[j] = sp[j] * sz[j] - sy[j];
-    __syncthreads();
-    admm::matvec_cols(A, m, n, st, part, G);            // A^T t
-    __syncthreads();
-    for (int i = tid; i < n; i += nthr)
-      sr[i] = sigma * sw[i] - sq[i] + admm::cols_sum(part, n, G, i);
-    __syncthreads();
-    admm::matvec_rows(M1, n, n, sr, [&](int i, T acc) { sm[i] = acc; });
-    __syncthreads();
-    admm::matvec_cols(M1, n, n, sm, part, G);           // M1^T (M1 rhs)
-    __syncthreads();
-    for (int i = tid; i < n; i += nthr) {
-      const T x = admm::cols_sum(part, n, G, i);
-      sx[i] = x;
-      sw[i] = alpha * x + one_m_alpha * sw[i];
-    }
-    __syncthreads();
-    admm::matvec_rows(A, m, n, sx, [&](int j, T zt) {   // A x~
-      const T z_rel = alpha * zt + one_m_alpha * sz[j];
-      const T z_new = admm::clip(z_rel + sy[j] / sp[j], sl[j], su[j]);
-      sy[j] = sy[j] + sp[j] * (z_rel - z_new);
-      sz[j] = z_new;
-    });
-    __syncthreads();
-  }
-  for (int i = tid; i < n; i += nthr) w_out[i] = sw[i];
-  for (int j = tid; j < m; j += nthr) y_out[j] = sy[j];
+template <typename T, int V>
+int launch_v(const Plan& p, void* stream, const T* M1, const T* A, const T* q,
+             const T* l, const T* u, const T* rho, const T* w0, const T* y0,
+             T* w_out, T* y_out, int n, int m, int iters, T sigma, T alpha) {
+  if (p.resident)
+    return launch_clusters(admm_single_kernel<T, V, true>, p, 1, stream, M1,
+                           A, q, l, u, rho, w0, y0, w_out, y_out, n, m, iters,
+                           sigma, alpha, p);
+  return launch_clusters(admm_single_kernel<T, V, false>, p, 1, stream, M1, A,
+                         q, l, u, rho, w0, y0, w_out, y_out, n, m, iters,
+                         sigma, alpha, p);
 }
 
 template <typename T>
 int launch(const T* M1, const T* A, const T* q, const T* l, const T* u,
            const T* rho, const T* w0, const T* y0, T* w_out, T* y_out, int n,
            int m, int iters, double sigma, double alpha, void* stream) {
-  const int G = admm::col_groups(n, kMaxThreads);
-  const size_t smem = smem_elems(n, m, G) * sizeof(T);
-  if (smem > kMaxSmem) return -1;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_single_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  admm_single_kernel<T><<<1, kMaxThreads, smem, (cudaStream_t)stream>>>(
-      M1, A, q, l, u, rho, w0, y0, w_out, y_out, n, m, iters, (T)sigma,
-      (T)alpha, G);
-  return (int)cudaGetLastError();
+  constexpr int kV = 16 / sizeof(T);
+  const int V = aligned16(M1, A) ? vector_width(n, sizeof(T)) : 1;
+  Plan p;
+  if (!plan_for(n, m, sizeof(T), V, &p)) return -1;
+  if (V == kV)
+    return launch_v<T, kV>(p, stream, M1, A, q, l, u, rho, w0, y0, w_out,
+                           y_out, n, m, iters, (T)sigma, (T)alpha);
+  return launch_v<T, 1>(p, stream, M1, A, q, l, u, rho, w0, y0, w_out, y_out,
+                        n, m, iters, (T)sigma, (T)alpha);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The plan for a QP of n variables and m rows with elements of `elem`
+// bytes, as export_plan lays it out; -1 when the vectors alone do not fit.
+int admm_single_plan(int n, int m, int elem, int* out) {
+  Plan p;
+  if (!plan_for(n, m, elem, vector_width(n, elem), &p)) return -1;
+  export_plan(p, out);
+  return 0;
+}
 
 int admm_single_f32(const float* M1, const float* A, const float* q,
                     const float* l, const float* u, const float* rho,

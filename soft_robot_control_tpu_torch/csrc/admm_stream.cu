@@ -1,10 +1,10 @@
-// Batched fixed-iteration ADMM for QPs too large for shared memory: one
-// block per QP, K^-1 and A streamed from device memory every iteration.
+// Batched fixed-iteration ADMM for QPs too large for a block's or a
+// cluster's shared memory: one block per QP, K^-1 and A streamed from device memory every iteration.
 //
 // Replaces the TPU kernel soft_robot_control_tpu/ops/pallas_admm.py
 // _admm_kinv_kernel (entry _admm_batched_pallas_grid) where one QP does not
 // fit a block's shared memory: the sparse LOCP at n=380, m=400, whose K^-1
-// alone is 578 KB in f32. Same function as admm_batched.cu: for each of B
+// alone is 578 KB in f32 (1.16 MB in f64). Same function as admm_batched.cu: for each of B
 // independent QPs, `iters` iterations of
 //   rhs = sigma w - q + A^T (rho z - y);  x~ = K^-1 rhs;  z~ = A x~;
 //   w = alpha x~ + (1-alpha) w;  z_rel = alpha z~ + (1-alpha) z;
@@ -25,9 +25,10 @@
 // A^T v and the symmetric K^-1 rhs walk the matrix by columns: a thread
 // owns a column, so a warp reads 128 consecutive bytes of one row at a
 // time, and G groups of threads split the rows and add their partial sums
-// through shared memory. No A^T copy exists. Keeping a QP resident across
-// a thread-block cluster's distributed shared memory (8 x 227 KB) would
-// remove the per-iteration traffic; that is a later redesign.
+// through shared memory. No A^T copy exists. A QP that fits a thread-block
+// cluster's distributed shared memory (8 x 227 KB) goes to admm_cluster.cu,
+// which removes the per-iteration traffic; this kernel takes the QPs beyond
+// that (the sparse LOCP in f64: 2.37 MB).
 #include "admm_matvec.cuh"
 
 namespace {

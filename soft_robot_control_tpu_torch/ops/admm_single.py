@@ -2,15 +2,19 @@
 
 Port of the TPU kernel soft_robot_control_tpu/ops/pallas_admm.py
 _admm_kernel (entry admm_pallas, wrapper admm_fixed_pallas) as the
-hand-written CUDA kernel csrc/admm_single.cu: one block, the vectors in
-shared memory, M1 and A read from L2 in every iteration. One QP of the
-sparse LOCP's size is bound by the latency of its chain of four dependent
-mat-vecs per iteration; the source says what the design does about it.
+hand-written CUDA kernel csrc/admm_single.cu: one thread-block cluster of 8
+blocks, each holding an eighth of the rows of M1 and of A in its shared
+memory for all iterations (walked in place, through L2, where the matrices
+do not fit the cluster: f64 at the sparse LOCP's size). One QP of that size
+is bound by the latency of its chain of four dependent mat-vecs per
+iteration; the source says what the design does about it.
 
 `admm_single` launches the kernel for CUDA tensors (float32 or float64) and
 runs `admm_single_plain`, the same arithmetic in PyTorch, only for CPU
 tensors. `admm_single.launches` counts kernel launches.
 `admm_fixed_single` prepares M1 and the clamped bounds from the QP.
+`single_plan_built` is the layout the built source exports;
+`ops.admm_batched.cluster_plan(..., single=True)` is the same in Python.
 """
 
 from __future__ import annotations
@@ -20,11 +24,15 @@ import ctypes
 import torch
 
 from soft_robot_control_tpu_torch.ops import build
+from soft_robot_control_tpu_torch.ops.admm_batched import (PLAN_FIELDS,
+                                                           exported_plan)
 
 _FN = {torch.float32: "admm_single_f32", torch.float64: "admm_single_f64"}
 _LAUNCH_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                 + [ctypes.c_double] * 2 + [ctypes.c_void_p])
 _SIGNATURES = {name: (ctypes.c_int, _LAUNCH_ARGS) for name in _FN.values()}
+_SIGNATURES["admm_single_plan"] = (
+    ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
 _BIG = 1e30  # finite stand-in for an infinite bound
 
 
@@ -90,6 +98,17 @@ def admm_single(M1, A, q, l, u, rho_vec, w0, y0, iters: int,
 
 
 admm_single.launches = 0
+
+
+def single_plan_built(n: int, m: int, elem_size: int):
+    """The layout of a QP over the kernel's cluster as the built
+    csrc/admm_single.cu exports it (ops.admm_batched.PLAN_FIELDS), or None
+    where not even the vectors fit. Needs the CUDA toolkit."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    lib = build.load("admm_single", _SIGNATURES)
+    if lib.admm_single_plan(n, m, elem_size, out) != 0:
+        return None
+    return exported_plan(out)
 
 
 def prepare_single(P, A, l, u, rho_vec, sigma: float = 1e-6):

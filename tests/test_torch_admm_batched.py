@@ -1,7 +1,7 @@
 """Kernels 1 and 3 of the port, the batched fixed-iteration ADMM for QPs
-that fit shared memory and for those that do not: their one plain version
-against the JAX package's Pallas kernels (interpret mode), the chunked one
-and the per-QP grid. The CUDA kernels are held to the plain version in
+that fit a block's shared memory, a cluster's, or neither: their one plain
+version against the JAX package's Pallas kernels (interpret mode), the
+chunked one and the per-QP grid. The CUDA kernels are held to the plain version in
 tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
@@ -16,6 +16,7 @@ from soft_robot_control_tpu.control.batch_mpc import make_kinv as jax_make_kinv
 from soft_robot_control_tpu.ops.pallas_admm import (
     _admm_batched_pallas_grid, _pick_chunk, admm_batched_pallas)
 from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
+                                                           admm_cluster,
                                                            admm_stream)
 
 
@@ -68,7 +69,7 @@ def test_plain_matches_pallas_grid_at_large_n(B, n, m, eq):
     w1, y1 = _admm_batched_pallas_grid(*[jnp.asarray(a) for a in args], 60,
                                        interpret=True)
     targs = [torch.as_tensor(a) for a in args]
-    for wrapper in (admm_batched, admm_stream):
+    for wrapper in (admm_batched, admm_cluster, admm_stream):
         launches = wrapper.launches
         w2, y2 = wrapper(*targs, 60)
         assert wrapper.launches == launches  # CPU tensors: no kernel
@@ -77,7 +78,8 @@ def test_plain_matches_pallas_grid_at_large_n(B, n, m, eq):
         np.testing.assert_allclose(y2.numpy(), np.asarray(y1), atol=1e-10)
 
 
-@pytest.mark.parametrize("wrapper", [admm_batched, admm_stream])
+@pytest.mark.parametrize("wrapper", [admm_batched, admm_cluster,
+                                     admm_stream])
 def test_wrapper_rejects_other_devices(wrapper):
     args = [torch.as_tensor(a).to("meta") for a in _qps(2, 4, 6, seed=0)]
     with pytest.raises(ValueError, match="unsupported device"):

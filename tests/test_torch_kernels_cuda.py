@@ -19,11 +19,15 @@ from torch_helpers import (CAMPAIGN_PARAMS, campaign_dict,  # noqa: F401
 from soft_robot_control_tpu_torch.control.batch_mpc import BatchMPC
 from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
 from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
+from soft_robot_control_tpu_torch.ops import build
 from soft_robot_control_tpu_torch.ops.admm_batched import (
-    admm_batched, admm_batched_plain, admm_stream)
+    PLAN_FIELDS, _SIGNATURES, admm_batched, admm_batched_plain, admm_cluster,
+    admm_stream, cluster_max_active, cluster_plan, cluster_plan_built,
+    kernel_for, qp_bytes)
 from soft_robot_control_tpu_torch.ops.admm_single import (admm_single,
                                                           admm_single_plain,
-                                                          prepare_single)
+                                                          prepare_single,
+                                                          single_plan_built)
 from soft_robot_control_tpu_torch.ops.tpwl_select import (
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv
@@ -93,28 +97,105 @@ def test_stream_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
     _assert_close(got, ref, dtype, tol)
 
 
+# the sparse LOCP's size, ragged sizes (n, m not multiples of the cluster
+# size or of 32; rows not a multiple of 16 bytes), and QPs with fewer rows
+# than the cluster has blocks
+CLUSTER_CASES = [(1, 380, 400, None), (3, 380, 400, 8), (2, 380, 400, 6),
+                 (5, 12, 16, 8), (2, 70, 33, 3), (3, 5, 7, 8),
+                 (2, 130, 141, None)]
+
+
+@pytest.mark.parametrize("B,n,m,R", CLUSTER_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_cluster_kernel_matches_plain(cuda_device, B, n, m, R, dtype, tol):
+    """The cluster-resident kernel at the sparse LOCP's size and at ragged
+    sizes, with infinite bounds, on the smallest cluster that holds the QP
+    (R None) and on named cluster sizes. The sparse LOCP in f64 fits no
+    cluster: there the wrapper raises."""
+    args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=n,
+                                                   inf_rows=m // 8)]
+    launches = admm_cluster.launches
+    if cluster_plan(n, m, args[0].element_size(), R) is None:
+        with pytest.raises(ValueError, match="more shared memory"):
+            admm_cluster(*args, 25, cluster_size=R)
+        assert admm_cluster.launches == launches
+        return
+    got = admm_cluster(*args, 25, cluster_size=R)
+    ref = admm_batched_plain(*args, 25)
+    torch.cuda.synchronize()
+    assert admm_cluster.launches == launches + 1
+    _assert_close(got, ref, dtype, tol)
+
+
+def test_cluster_kernel_takes_unaligned_and_strided_inputs(cuda_device):
+    """A view that starts 4 bytes into its storage (no 16-byte loads) and a
+    non-contiguous one: same answers."""
+    args = [t.to(cuda_device, torch.float32) for t in _qps(2, 64, 72, seed=1)]
+    ref = admm_batched_plain(*args, 20)
+    shifted = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16 == 4
+    strided = [args[0].transpose(1, 2).contiguous().transpose(1, 2)] + args[1:]
+    for a in (shifted, strided):
+        got = admm_cluster(*a, 20, cluster_size=4)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, torch.float32, 1e-4)
+
+
 def test_admm_batched_dispatches_by_size(cuda_device):
-    """A QP that does not fit a block's shared memory goes to the
-    streaming kernel, one that fits to the shared-memory kernel; both
-    agree with the one plain version."""
-    for (n, m), stream in (((200, 400), True), ((20, 40), False)):
-        args = [t.to(cuda_device) for t in _qps(2, n, m, seed=0)]
-        before = (admm_batched.launches, admm_stream.launches)
+    """A QP that fits a block's shared memory goes to the warp-per-QP
+    kernel, one that fits a cluster's to the cluster-resident kernel, one
+    beyond to the streaming kernel, by `kernel_for`'s rule; all agree with
+    the one plain version."""
+    wrappers = {"admm_batched": admm_batched, "admm_cluster": admm_cluster,
+                "admm_stream": admm_stream}
+    for (n, m, dtype), want in (((20, 40, torch.float64), "admm_batched"),
+                                ((20, 40, torch.float32), "admm_batched"),
+                                ((200, 400, torch.float64), "admm_cluster"),
+                                ((380, 400, torch.float32), "admm_cluster"),
+                                ((380, 400, torch.float64), "admm_stream")):
+        args = [t.to(cuda_device, dtype) for t in _qps(2, n, m, seed=0)]
+        assert kernel_for(n, m, args[0].element_size()) == want
+        before = {k: w.launches for k, w in wrappers.items()}
         got = admm_batched(*args, 10)
         torch.cuda.synchronize()
-        assert (admm_batched.launches - before[0],
-                admm_stream.launches - before[1]) == (
-                    (0, 1) if stream else (1, 0))
-        _assert_close(got, admm_batched_plain(*args, 10), torch.float64,
-                      1e-9)
+        assert {k: w.launches - before[k] for k, w in wrappers.items()} == {
+            k: int(k == want) for k in wrappers}
+        _assert_close(got, admm_batched_plain(*args, 10), dtype,
+                      1e-9 if dtype == torch.float64 else 1e-4)
 
 
-@pytest.mark.parametrize("n,m", [(380, 400), (30, 40), (70, 33)])
+@pytest.mark.parametrize("n,m", [(380, 400), (252, 264), (200, 400),
+                                 (20, 40), (70, 33), (5, 7), (130, 141)])
+@pytest.mark.parametrize("elem", [4, 8])
+def test_plan_agrees_with_the_built_sources(cuda_device, n, m, elem):
+    """The Python plan and byte counts against what the .cu files export."""
+    lib = build.load("admm_batched", _SIGNATURES["admm_batched"])
+    assert qp_bytes(n, m, elem) == lib.admm_batched_qp_bytes(n, m, elem)
+    for R in (0, 1, 6, 8):
+        want = cluster_plan(n, m, elem, R or None)
+        got = cluster_plan_built(n, m, elem, R)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got == {k: want[k] for k in PLAN_FIELDS}
+            assert 1 <= cluster_max_active(n, m, elem, R) <= 132
+    want = cluster_plan(n, m, elem, single=True)
+    assert single_plan_built(n, m, elem) == {k: want[k] for k in PLAN_FIELDS}
+
+
+@pytest.mark.parametrize("n,m", [(380, 400), (30, 40), (70, 33), (252, 264),
+                                 (5, 9), (131, 77)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
 def test_single_kernel_matches_plain(cuda_device, n, m, dtype, tol):
     """Kernel 4 with a boosted rho on equality rows and clamped infinite
-    bounds, from the wrapper's own preparation."""
+    bounds, from the wrapper's own preparation: resident in the cluster's
+    shared memory (f32, and f64 at the smaller sizes), walked in place
+    (f64 at n=380), ragged sizes, and fewer rows than blocks."""
     rng = np.random.default_rng(n)
     Ph = rng.normal(size=(n, n))
     P = torch.as_tensor(Ph @ Ph.T + 0.1 * np.eye(n))
@@ -204,8 +285,9 @@ def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):
 def test_sparse_closed_loop_on_the_card_matches_the_cpu(cuda_device, path,
                                                         dtype, tol):
     """Sparse BatchMPC on a 64-point campaign subset (n=380, m=400): the
-    card's loop goes through the streaming kernel (`build_fused`, four
-    launches a window) or the single-QP kernel (`build` with use_pallas,
+    card's loop goes through the cluster-resident kernel in f32 and the
+    streaming kernel in f64 (`build_fused`, four launches a window) or the
+    single-QP kernel (`build` with use_pallas,
     one launch a window) and agrees with the f64 CPU loop: in f64 to 1e-6
     of the output's variation, in f32 to 5e-2 of it (the equality rows'
     1e3 rho boost amplifies f32 rounding in K^-1, and two windows from
@@ -234,16 +316,20 @@ def test_sparse_closed_loop_on_the_card_matches_the_cpu(cuda_device, path,
         zt = np.stack([np.stack([zt[2 * w:2 * w + 6] for w in range(n_win)])]
                       * B)
         admm_batched.launches = admm_stream.launches = 0
+        admm_cluster.launches = 0
         admm_single.launches = tpwl_select.launches = 0
         x0 = np.zeros((B, 60))
         out = (mpc.build_fused(n_win)(x0, x0, zt) if fused
                else mpc.build(n_win)(x0[0], x0[0], zt[0]))
-        counts[str(dev)] = (admm_batched.launches, admm_stream.launches,
-                            admm_single.launches, tpwl_select.launches)
+        counts[str(dev)] = (admm_batched.launches, admm_cluster.launches,
+                            admm_stream.launches, admm_single.launches,
+                            tpwl_select.launches)
         logs[str(dev)] = out["z"].double().cpu().numpy()
+    f32 = dtype == torch.float32
     assert counts[str(cuda_device)] == (
-        (0, 4 * n_win, 0, 3 * n_win) if fused else (0, 0, n_win, 3 * n_win))
-    assert counts["cpu"] == (0, 0, 0, 0)
+        (0, 4 * n_win * f32, 4 * n_win * (not f32), 0, 3 * n_win) if fused
+        else (0, 0, 0, n_win, 3 * n_win))
+    assert counts["cpu"] == (0, 0, 0, 0, 0)
     ref = logs["cpu"]
     diff = np.linalg.norm(logs[str(cuda_device)] - ref)
     assert diff <= tol * np.linalg.norm(ref - ref.mean(axis=-2,

@@ -15,12 +15,12 @@ FORBIDDEN = {"jax", "jaxlib", "soft_robot_control_tpu"}
 
 
 def _port_files():
-    """The package, chip_smoke.py, and the card tests with their helpers,
-    which run on a machine without JAX."""
+    """The package, chip_smoke.py, cluster_probe.py, and the card tests
+    with their helpers, which run on a machine without JAX."""
     root = os.path.join(REPO, "soft_robot_control_tpu_torch")
     files = [os.path.join(REPO, p) for p in (
-        "chip_smoke.py", "tests/test_torch_kernels_cuda.py",
-        "tests/torch_helpers.py")]
+        "chip_smoke.py", "cluster_probe.py",
+        "tests/test_torch_kernels_cuda.py", "tests/torch_helpers.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
