@@ -7,11 +7,18 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the five CUDA kernels from soft_robot_control_tpu_torch/csrc, one
    nvcc each, started together;
-3. kernel 1 (batched ADMM, QP resident in shared memory) against its plain
-   PyTorch version on condensed QPs (n=20, m=40) that the port assembles
-   from the Diamond campaign dictionary, in f64 and f32, at B=1024, 1, 3;
+3. kernel 1 (batched ADMM for QPs that fit a block) against its plain
+   PyTorch version on condensed QPs (n=20, m=40, its register form) that
+   the port assembles from the Diamond campaign dictionary, and on random
+   QPs of n=100, m=120 (its shared form), in f64 and f32, at B=1024, 1, 3;
+   timed at B=1024 with 25 iterations and with none, whose difference is
+   the time of the iterations apart from the loads;
 4. kernel 2 (TPWL select and gather) against its plain version on 5120
-   states near the campaign dictionary (P=1087, r=30);
+   states near the campaign dictionary (P=1087, r=30), at B=5120, at a
+   ragged B=5119, and at B=3072 with rows for the last two thirds only
+   (index_only=1024, as the tick calls it); timed as the plan launch
+   (B=5120), the tick launch (B=3072, index_only=1024) and an index-only
+   launch (B=5120, index_only=5120: the select without the gather);
 5. kernel 3 in its two forms against the same plain version on sparse QPs
    (n=380, m=400, one-sided rows with infinite bounds) assembled,
    equilibrated and rho-folded as the fused sparse loop builds them, at
@@ -141,6 +148,15 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def clocks():
+    """The card's SM clock, its maximum, power draw and temperature now, as
+    nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def bound(bytes_moved, flops):
     """Least time (ms) for the work on an H100, and what sets it."""
     t_b = bytes_moved / HBM_BYTES_PER_S
@@ -259,12 +275,62 @@ def compare(name, tag, got, ref, dtype, tol_f32, f64_scaled=False):
     return {"max_abs_err": err, "scale": scale}
 
 
+def random_qps(B, n, m, seed, dtype, device):
+    """B random feasible QPs of n variables and m rows with K^-1 from
+    make_kinv (built in f64), a shared rho row, and infinite bounds on the
+    first m // 8 rows (no lower) and the next m // 8 (no upper); the
+    kernels' argument list."""
+    rng = np.random.default_rng(seed)
+    Ph = torch.as_tensor(rng.normal(size=(B, n, n)), device=device)
+    P = Ph @ Ph.transpose(1, 2) + 0.1 * torch.eye(
+        n, dtype=torch.float64, device=device)
+    A = torch.as_tensor(rng.normal(size=(B, m, n)), device=device)
+    mid = torch.einsum("bmn,bn->bm", A, torch.as_tensor(
+        0.2 * rng.normal(size=(B, n)), device=device))
+    rho = torch.full((m,), 0.1, dtype=torch.float64, device=device)
+    half = torch.as_tensor(rng.uniform(0.1, 1, (2, B, m)), device=device)
+    l, u = mid - half[0], mid + half[1]
+    l[:, :m // 8] = -float("inf")
+    u[:, m // 8:2 * (m // 8)] = float("inf")
+    args = [make_kinv(P, A, rho), A, torch.as_tensor(
+        rng.normal(size=(B, n)), device=device), l, u, rho,
+        torch.as_tensor(0.1 * rng.normal(size=(B, n)), device=device),
+        torch.as_tensor(0.1 * rng.normal(size=(B, m)), device=device)]
+    return [t.to(dtype) for t in args]
+
+
+def check_sizes(wrapper, args, sizes, tag, tol_f32, f64_scaled, out):
+    """wrapper against admm_batched_plain on the first B QPs of args, for B
+    in `sizes`; each result goes into out under `tag` B=..."""
+    name = wrapper.__name__
+    for B in sizes:
+        a = [t[:B] if t.dim() > 1 else t for t in args]
+        count = wrapper.launches
+        got = wrapper(*a, ITERS)
+        check(wrapper.launches == count + 1,
+              f"{name} did not launch its kernel")
+        key = f"{tag} B={B}"
+        out[key] = compare(name, key, got, admm_batched_plain(*a, ITERS),
+                           args[0].dtype, tol_f32, f64_scaled=f64_scaled)
+
+
+def admm_work(B, n, mc, iters):
+    """Bytes (inputs read once, outputs written once, f32) and operations
+    (per iteration three mat-vecs, A^T, K^-1, A, and the element-wise
+    updates) of B fixed-iteration ADMM solves."""
+    nbytes = 4 * (B * n * n + B * mc * n + 3 * B * n + 4 * B * mc + mc)
+    flops = B * (2 * mc * n + 2 * mc + iters * (
+        4 * mc * n + 2 * n * n + 5 * n + 12 * mc))
+    return nbytes, flops
+
+
 def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
-               cluster_sizes=()):
+               cluster_sizes=(), other_size=None):
     """A batched ADMM kernel against admm_batched_plain at the batch sizes
     `sizes`, f64 (on mpc64's QPs) and f32 (on mpc's), then timed at B_MAIN
-    in f32; `cluster_sizes` are also timed, in turns, where the wrapper
-    takes a cluster size."""
+    in f32, also with no iterations; `other_size` (n, m) repeats the checks
+    and the timing on random QPs of that size; `cluster_sizes` are also
+    timed, in turns, where the wrapper takes a cluster size."""
     name = wrapper.__name__
     out = {}
     for m in (mpc64, mpc):
@@ -274,31 +340,40 @@ def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
                     + torch.isinf(args[4][0]).sum())
         print(f"[{name}] {str(m.dtype)[6:]} QPs of n={args[2].shape[1]}, "
               f"m={args[3].shape[1]} with {n_inf} infinite bounds each")
-        for B in sizes:
-            a = [t[:B] if t.dim() > 1 else t for t in args]
-            count = wrapper.launches
-            got = wrapper(*a, ITERS)
-            check(wrapper.launches == count + 1,
-                  f"{name} did not launch its kernel")
-            tag = f"{str(m.dtype)[6:]} B={B}"
-            out[tag] = compare(name, tag, got, admm_batched_plain(*a, ITERS),
-                               m.dtype, tol_f32,
-                               f64_scaled=m.formulation == "sparse")
+        check_sizes(wrapper, args, sizes, str(m.dtype)[6:], tol_f32,
+                    m.formulation == "sparse", out)
     B, n, mc = B_MAIN, args[2].shape[1], args[3].shape[1]
     ms = cuda_ms(lambda: wrapper(*args, ITERS), reps)
+    ms0 = cuda_ms(lambda: wrapper(*args, 0), reps)
+    out["clocks"] = clocks()
     plain_ms = cuda_ms(lambda: admm_batched_plain(*args, ITERS), 3)
-    # inputs read once, outputs written once; per iteration three
-    # mat-vecs (A^T, K^-1, A) and the element-wise updates
-    nbytes = 4 * (B * n * n + B * mc * n + 3 * B * n + 4 * B * mc + mc)
-    flops = B * (2 * mc * n + 2 * mc + ITERS * (
-        4 * mc * n + 2 * n * n + 5 * n + 12 * mc))
+    nbytes, flops = admm_work(B, n, mc, ITERS)
     bound_ms, bound_by = bound(nbytes, flops)
-    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, bytes=nbytes, flops=flops,
+    us_iter = 1e3 * (ms - ms0) / ITERS
+    out.update(ms=ms, ms_no_iterations=ms0, us_per_iteration=us_iter,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops,
                shape=f"B={B}, n={n}, m={mc}, iters={ITERS}, f32")
     print(f"[{name}] f32 B={B} n={n} m={mc} {ITERS} iters: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}) [{card}]")
+          f"{ms:.4f} ms ({ms0:.4f} ms with no iteration: {us_iter:.3f} us "
+          f"an iteration), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}) [{card}; after it SM clock, max, power, temperature: "
+          f"{out['clocks']}]")
+    if other_size is not None:
+        n2, m2 = other_size
+        for dt in (torch.float64, torch.float32):
+            a2 = random_qps(max(sizes), n2, m2, 17, dt, mpc.device)
+            check_sizes(wrapper, a2, sizes, f"{str(dt)[6:]} n={n2} m={m2}",
+                        tol_f32, False, out)
+        ms2 = cuda_ms(lambda: wrapper(*a2, ITERS), reps)
+        ms20 = cuda_ms(lambda: wrapper(*a2, 0), reps)
+        b2, f2 = admm_work(B, n2, m2, ITERS)
+        bound2, by2 = bound(b2, f2)
+        out[f"n={n2} m={m2}"] = dict(ms=ms2, ms_no_iterations=ms20,
+                                    bound_ms=bound2, bound_by=by2)
+        print(f"[{name}] f32 B={B} n={n2} m={m2} {ITERS} iters: kernel "
+              f"{ms2:.4f} ms ({ms20:.4f} ms with no iteration), bound "
+              f"{bound2:.5f} ms ({by2}) [{card}]")
     if cluster_sizes:
         plan = cluster_plan_built(n, mc, 4)
         print(f"[{name}] default plan at n={n}, m={mc}, f32: {plan}")
@@ -357,56 +432,73 @@ def phase_single(mpc64, mpc, x_qp, zt, card):
 
 
 def phase_select(model64, model, x64, card):
+    """Kernel 2 against its plain version: identical indices away from
+    near-ties and bitwise-equal rows, f64 and f32, at B=5120, a ragged
+    B=5119 and B=3072 with index_only=1024; then the plan, tick and
+    index-only launches timed in f32."""
     d64 = point_distances_batch(x64, model64.q, model64.v, model64.dist_w_q,
                                 model64.dist_w_v)
     two = torch.topk(d64, 2, dim=1, largest=False).values
     near_tie = (two[:, 1] - two[:, 0]) < NEAR_TIE * two[:, 0]
     out = {"near_ties": int(near_tie.sum())}
+    B_plan, B_tick = N * B_MAIN, (1 + N_REPLAN) * B_MAIN
     for mdl in (model64, model):
-        x = x64.to(mdl.q.dtype)
-        tag = str(x.dtype)[6:]
         dic = (mdl.q, mdl.v, mdl.A_d, mdl.B_d, mdl.d_d, mdl.dist_w_q,
                mdl.dist_w_v)
-        got = tpwl_select(x, *dic)
-        ref = tpwl_select_plain(x, *dic)
-        torch.cuda.synchronize()
-        same = got[0] == ref[0]
-        check(bool((same | near_tie).all()),
-              f"tpwl_select {tag}: {int((~same & ~near_tie).sum())} index "
-              "differences away from near-ties")
-        err = max(float((a[same] - b[same]).abs().max())
-                  for a, b in zip(got[1:], ref[1:]))
-        check(err == 0.0, f"tpwl_select {tag}: gathered rows differ")
-        out[tag] = {"index_differences": int((~same).sum()), "max_abs_err":
-                    err, "distinct_points": int(torch.unique(got[0]).numel())}
-        print(f"[tpwl_select] {tag} B={x.shape[0]}: "
-              f"{out[tag]['index_differences']} index differences, all at "
-              f"near-ties (f64 gap < {NEAR_TIE} rel; {out['near_ties']} "
-              f"near-ties), gathered rows bitwise equal, "
-              f"{out[tag]['distinct_points']} distinct points")
+        for B, k in ((B_plan, 0), (B_plan - 1, 0), (B_tick, B_MAIN)):
+            x = x64[:B].to(mdl.q.dtype)
+            tag = f"{str(x.dtype)[6:]} B={B} index_only={k}"
+            got = tpwl_select(x, *dic, index_only=k)
+            ref = tpwl_select_plain(x, *dic, k)
+            torch.cuda.synchronize()
+            same = got[0] == ref[0]
+            check(bool((same | near_tie[:B]).all()),
+                  f"tpwl_select {tag}: {int((~same & ~near_tie[:B]).sum())} "
+                  "index differences away from near-ties")
+            check(all(a.shape[0] == B - k for a in got[1:]),
+                  f"tpwl_select {tag}: {got[1].shape[0]} rows, expected "
+                  f"{B - k}")
+            err = max([0.0] + [float(e.abs().max()) for e in (
+                a[same[k:]] - b[same[k:]] for a, b in zip(got[1:], ref[1:]))
+                if e.numel()])
+            check(err == 0.0, f"tpwl_select {tag}: gathered rows differ")
+            out[tag] = {"index_differences": int((~same).sum()),
+                        "max_abs_err": err, "distinct_points": int(
+                            torch.unique(got[0]).numel())}
+            print(f"[tpwl_select] {tag}: "
+                  f"{out[tag]['index_differences']} index differences, all "
+                  f"at near-ties (f64 gap < {NEAR_TIE} rel; "
+                  f"{int(near_tie[:B].sum())} near-ties), gathered rows "
+                  f"bitwise equal, {out[tag]['distinct_points']} distinct "
+                  "points")
     dic = (model.q, model.v, model.A_d, model.B_d, model.d_d,
            model.dist_w_q, model.dist_w_v)
     P, r = model.q.shape
     n, mu = model.B_d.shape[1:]
     row = n * n + n * mu + n
     xs = x64.float()
-    for B in (N * B_MAIN, (1 + N_REPLAN) * B_MAIN):  # plan, tick launches
+    for name, B, k in (("plan", B_plan, 0), ("tick", B_tick, B_MAIN),
+                       ("index_only", B_plan, B_plan)):
         xb = xs[:B]
-        n_rows = int(torch.unique(tpwl_select(xb, *dic)[0]).numel())
-        ms = cuda_ms(lambda: tpwl_select(xb, *dic), 50)
-        plain_ms = cuda_ms(lambda: tpwl_select_plain(xb, *dic), 5)
-        # states and dictionary coordinates read once, the rows this data
-        # selects read once, the gathered rows and indices written once;
-        # per state and point 3 operations a coordinate, 2 roots, 3 more
-        nbytes = 4 * (B * 2 * r + P * 2 * r + n_rows * row + B * row) + 8 * B
+        n_rows = int(torch.unique(tpwl_select(xb, *dic)[0][k:]).numel())
+        ms = cuda_ms(lambda: tpwl_select(xb, *dic, index_only=k), 50)
+        clk = clocks()
+        plain_ms = cuda_ms(lambda: tpwl_select_plain(xb, *dic, k), 5)
+        # states and dictionary coordinates read once, the rows that the
+        # states k.. select read once, their rows and every index written
+        # once; per state and point 3 operations a coordinate, 2 roots, 3
+        # more
+        nbytes = 4 * (B * 2 * r + P * 2 * r + n_rows * row
+                      + (B - k) * row) + 8 * B
         flops = B * P * (6 * r + 5)
         bound_ms, bound_by = bound(nbytes, flops)
-        out[f"B={B}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, bytes=nbytes, flops=flops,
-                             distinct_rows=n_rows)
-        print(f"[tpwl_select] f32 B={B} P={P}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
-              f"[{card}]")
+        out[name] = dict(B=B, index_only=k, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         flops=flops, distinct_rows=n_rows, clocks=clk)
+        print(f"[tpwl_select] {name} launch, f32 B={B} index_only={k} "
+              f"P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}) [{card}; after it SM clock, max, "
+              f"power, temperature: {out[name]['clocks']}]")
     return out
 
 
@@ -633,7 +725,7 @@ def main():
     # 3.-6. every kernel against its plain version
     rec["admm_batched"] = phase_admm(
         admm_batched, make_mpc(model64, torch.float64, dev), mpc, x_near, zt,
-        card, (B_MAIN, 1, 3), ADMM_F32_TOL, 50)
+        card, (B_MAIN, 1, 3), ADMM_F32_TOL, 50, other_size=(100, 120))
     rec["tpwl_select"] = phase_select(model64, model, x_near, card)
     rec["admm_stream"] = phase_admm(
         admm_stream, make_mpc(model64, torch.float64, dev, "A"), mpc_a,
@@ -658,7 +750,7 @@ def main():
         {**none, "admm_stream": 4}, PATH_A_CPU_AGREE_TOL, 5)
     rec["path_b"] = phase_single_loop(mpc_b, model64, zt_b, card)
 
-    k2 = rec["tpwl_select"][f"B={N * B_MAIN}"]
+    k2 = rec["tpwl_select"]["plan"]
     paths = {"condensed": rec["condensed"]["launches"],
              "path_a": rec["path_a"]["launches"],
              "path_a_f64": rec["path_a"]["launches_f64"],
@@ -685,7 +777,8 @@ def main():
               rec["admm_batched"][f"float32 B={B_MAIN}"]["max_abs_err"],
               rec["admm_batched"]),
         entry("tpwl_select", "pallas_tpwl.py:24", "condensed",
-              rec["tpwl_select"]["float32"]["max_abs_err"], k2),
+              rec["tpwl_select"][f"float32 B={N * B_MAIN} index_only=0"][
+                  "max_abs_err"], k2),
         entry("admm_stream", "pallas_admm.py:94", "path_a_f64",
               rec["admm_stream"]["float32 B=64"]["max_abs_err"],
               rec["admm_stream"]),

@@ -20,7 +20,9 @@ does:
 5. run N_replan ticks: DARE-gain feedback at the plan point, command
    clamp, plant step, EKF predict and correct. The three nearest-point
    lookups of a tick (plan point, plant state, estimate) go through one
-   select launch.
+   select launch, which copies dynamics rows for the plant state and the
+   estimate only: at the plan point only the index (the DARE gain) is
+   used.
 
 The semantics are those of the JAX package's BatchMPC (real-time mode:
 one LOCP per query, plan feedback with per-point DARE gains).
@@ -328,11 +330,14 @@ class BatchMPC:
         Bsz = x_p.shape[0]
         mv = lambda M, v: (M @ v[..., None])[..., 0]
         x_bar, u_bar = x_plan[:, k], u_plan[:, k]
-        idx, A, Bm, d = m.select(torch.cat([x_bar, x_p, ekf.x], dim=0))
+        # one launch: the plan point's index (its DARE gain), rows at the
+        # plant state and the estimate only
+        idx, A, Bm, d = m.select(torch.cat([x_bar, x_p, ekf.x], dim=0),
+                                 index_only=Bsz)
         u = u_bar + mv(self.K_pts[idx[:Bsz]], ekf.x - x_bar)
         if self.u_clamp is not None:
             u = torch.clamp(u, self.u_clamp[0], self.u_clamp[1])
-        p, e = slice(Bsz, 2 * Bsz), slice(2 * Bsz, 3 * Bsz)
+        p, e = slice(0, Bsz), slice(Bsz, 2 * Bsz)
         x_next = mv(A[p], x_p) + mv(Bm[p], u) + d[p]
         y = x_next @ m.C.T + m.y_ref
         if noise is not None:

@@ -127,13 +127,14 @@ class TPWLModel:
         return self._replace(A_d=A_d, B_d=B_d, d_d=d_d,
                              pre_discretized_dt=float(dt))
 
-    def select(self, x):
-        """Nearest-point (idx, A_d, B_d, d_d) for states x (B, n_x),
-        through the TPWL select kernel on a card."""
+    def select(self, x, index_only: int = 0):
+        """Nearest-point (idx, A_d, B_d, d_d) for states x (B, n_x), the
+        rows for states index_only.. only, through the TPWL select kernel
+        on a card."""
         from soft_robot_control_tpu_torch.ops.tpwl_select import tpwl_select
 
         return tpwl_select(x, self.q, self.v, self.A_d, self.B_d, self.d_d,
-                           self.dist_w_q, self.dist_w_v)
+                           self.dist_w_q, self.dist_w_v, index_only)
 
 
 def _dense(M):

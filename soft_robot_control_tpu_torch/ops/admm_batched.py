@@ -4,10 +4,13 @@ Port of the TPU kernels soft_robot_control_tpu/ops/pallas_admm.py
 _admm_chunk_kernel and _admm_kinv_kernel (entry admm_batched_pallas) as
 three hand-written CUDA kernels that compute the same function:
 
-- csrc/admm_batched.cu, one warp per QP with K^-1 and A resident in shared
-  memory for all iterations, for QPs that fit a block's shared memory (the
-  condensed LOCP, n=20, m=40). It is bound by the latency of its
-  per-iteration chain of small mat-vecs.
+- csrc/admm_batched.cu, for QPs that fit a block's shared memory, in two
+  forms chosen by size and element type (`batched_form`): in float32 for
+  n <= 32, m <= 64 (the condensed LOCP, n=20, m=40) one warp per QP with
+  A, A^T and K^-1 in registers, each mat-vec a chain of FMAs on a lane's
+  own registers against a vector broadcast from shared memory; otherwise
+  one warp per QP with K^-1 and A resident in shared memory. Both are bound
+  by the latency of the per-iteration chain of small mat-vecs.
 - csrc/admm_cluster.cu, one thread-block cluster per QP with K^-1 and A
   resident across the cluster's shared memory, each block owning a slice of
   rows, for QPs that fit a cluster but not a block (the sparse LOCP, n=380,
@@ -42,6 +45,7 @@ _CLUSTER_ARGS = _LAUNCH_ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "admm_batched": {
         "admm_batched_qp_bytes": (ctypes.c_size_t, [ctypes.c_int] * 3),
+        "admm_batched_form": (ctypes.c_int, [ctypes.c_int] * 3),
         "admm_batched_f32": (ctypes.c_int, _LAUNCH_ARGS),
         "admm_batched_f64": (ctypes.c_int, _LAUNCH_ARGS),
     },
@@ -66,6 +70,15 @@ def qp_bytes(n: int, m: int, elem_size: int) -> int:
     """Shared memory one QP takes in csrc/admm_batched.cu (qp_elems): K^-1,
     A with an odd row stride, 4 n-vectors and 6 m-vectors."""
     return (n * n + m * (n | 1) + 4 * n + 6 * m) * elem_size
+
+
+def batched_form(n: int, m: int, elem_size: int) -> str:
+    """The form csrc/admm_batched.cu (admm_batched_form) takes for a QP of
+    this size and element size: 'registers' (matrices in a warp's
+    registers) in float32 for n <= 32 and m <= 64, 'shared' (matrices in
+    shared memory) otherwise."""
+    return ("registers" if elem_size == 4 and n <= 32 and m <= 64
+            else "shared")
 
 
 def _ceil_div(a: int, b: int) -> int:

@@ -17,7 +17,9 @@ from soft_robot_control_tpu.ops.pallas_admm import (
     _admm_batched_pallas_grid, _pick_chunk, admm_batched_pallas)
 from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
                                                            admm_cluster,
-                                                           admm_stream)
+                                                           admm_stream,
+                                                           batched_form,
+                                                           kernel_for)
 
 
 def _qps(B, n, m, seed, eq_rows=0):
@@ -85,3 +87,16 @@ def test_wrapper_rejects_other_devices(wrapper):
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*args, 5)
 
+
+
+@pytest.mark.parametrize("n,m,elem,form", [
+    (20, 40, 4, "registers"), (1, 1, 4, "registers"), (32, 64, 4, "registers"),
+    (33, 64, 4, "shared"), (32, 65, 4, "shared"), (100, 120, 4, "shared"),
+    (20, 40, 8, "shared"), (1, 1, 8, "shared")])
+def test_form_of_the_block_kernel(n, m, elem, form):
+    """The register form takes the condensed LOCP (n=20, m=40) and every
+    float32 QP up to 32 variables and 64 rows, the shared form the rest of
+    what fits a block, float64 included; every register-form QP fits a
+    block, so the choice among the three kernels does not change."""
+    assert batched_form(n, m, elem) == form
+    assert kernel_for(n, m, elem) == "admm_batched"

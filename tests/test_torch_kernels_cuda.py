@@ -22,8 +22,8 @@ from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
 from soft_robot_control_tpu_torch.ops import build
 from soft_robot_control_tpu_torch.ops.admm_batched import (
     PLAN_FIELDS, _SIGNATURES, admm_batched, admm_batched_plain, admm_cluster,
-    admm_stream, cluster_max_active, cluster_plan, cluster_plan_built,
-    kernel_for, qp_bytes)
+    admm_stream, batched_form, cluster_max_active, cluster_plan,
+    cluster_plan_built, kernel_for, qp_bytes)
 from soft_robot_control_tpu_torch.ops.admm_single import (admm_single,
                                                           admm_single_plain,
                                                           prepare_single,
@@ -66,11 +66,17 @@ def _assert_close(got, ref, dtype, tol):
         assert float((a - b).abs().max()) <= tol * scale
 
 
-@pytest.mark.parametrize("B", [1, 3, 1024])
+@pytest.mark.parametrize("B", [1, 3, 37, 1024])
+@pytest.mark.parametrize("n,m", [(20, 40), (7, 13), (33, 70), (100, 120)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
-def test_admm_kernel_matches_plain(cuda_device, B, dtype, tol):
-    args = [t.to(cuda_device, dtype) for t in _qps(B, 20, 40, seed=B)]
+def test_admm_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
+    """Kernel 1 in its register form (f32 at the condensed LOCP's size and
+    at a ragged smaller one) and its shared form (f64, and past 32
+    variables), with infinite bounds on some rows, at a ragged B too."""
+    args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=B,
+                                                   inf_rows=m // 8)]
+    assert kernel_for(n, m, args[0].element_size()) == "admm_batched"
     launches = admm_batched.launches
     w1, y1 = admm_batched(*args, 25)
     w2, y2 = admm_batched_plain(*args, 25)
@@ -176,6 +182,10 @@ def test_plan_agrees_with_the_built_sources(cuda_device, n, m, elem):
     """The Python plan and byte counts against what the .cu files export."""
     lib = build.load("admm_batched", _SIGNATURES["admm_batched"])
     assert qp_bytes(n, m, elem) == lib.admm_batched_qp_bytes(n, m, elem)
+    for nn, mm in ((n, m), (min(n, 32), min(m, 64)), (24, 48), (25, 48),
+                   (24, 49), (32, 65), (33, 64)):
+        assert lib.admm_batched_form(nn, mm, elem) == (
+            batched_form(nn, mm, elem) == "registers")
     for R in (0, 1, 6, 8):
         want = cluster_plan(n, m, elem, R or None)
         got = cluster_plan_built(n, m, elem, R)
@@ -221,30 +231,101 @@ def test_single_kernel_matches_plain(cuda_device, n, m, dtype, tol):
     _assert_close(got, ref, dtype, tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_select_kernel_matches_plain(cuda_device, dtype):
-    """On the full campaign dictionary (P=1087): identical indices except
-    at near-ties, and bitwise-equal rows wherever the indices agree."""
+@pytest.fixture(scope="module")
+def campaign_states():
+    """The full campaign dictionary (P=1087) on the card, 5119 states near
+    it (f64), and which of them are near-ties (f64 gap under 1e-6
+    relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
     model = from_tpwl_dict(campaign_dict(), params=CAMPAIGN_PARAMS,
-                           device=cuda_device)
+                           device=dev)
     rng = np.random.default_rng(5)
     X = torch.cat([model.v, model.q], dim=1)
-    pts = torch.as_tensor(rng.integers(0, model.num_points, 2000),
-                          device=cuda_device)
-    noise = torch.as_tensor(rng.normal(size=(2000, 60)), device=cuda_device)
+    pts = torch.as_tensor(rng.integers(0, model.num_points, 5119), device=dev)
+    noise = torch.as_tensor(rng.normal(size=(5119, 60)), device=dev)
     x = X[pts] + 0.05 * X.std(dim=0) * noise
     d = point_distances_batch(x, model.q, model.v, 10.0, 1.0)
     two = torch.topk(d, 2, dim=1, largest=False).values
-    near_tie = (two[:, 1] - two[:, 0]) < 1e-6 * two[:, 0]
-    m = model.to(dtype=dtype)
-    dic = (m.q, m.v, m.A_d, m.B_d, m.d_d, 10.0, 1.0)
-    got = tpwl_select(x.to(dtype), *dic)
-    ref = tpwl_select_plain(x.to(dtype), *dic)
+    return model, x, (two[:, 1] - two[:, 0]) < 1e-6 * two[:, 0]
+
+
+def _assert_select_agrees(got, ref, near_tie, k):
+    """Identical indices except at near-ties, bitwise-equal rows (states
+    k..) wherever the indices agree."""
     torch.cuda.synchronize()
     same = got[0] == ref[0]
     assert bool((same | near_tie).all())
     for a, b in zip(got[1:], ref[1:]):
-        assert torch.equal(a[same], b[same])
+        assert a.shape[0] == got[0].shape[0] - k
+        assert torch.equal(a[same[k:]], b[same[k:]])
+
+
+@pytest.mark.parametrize("B", [1, 7, 3072, 5119])
+@pytest.mark.parametrize("third", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_select_kernel_matches_plain(campaign_states, B, third, dtype):
+    """On the full campaign dictionary (P=1087), with index_only = 0, B/3
+    and B: identical indices except at near-ties, and bitwise-equal rows
+    wherever the indices agree."""
+    model, x, near_tie = campaign_states
+    k = B * third // 3
+    m = model.to(dtype=dtype)
+    dic = (m.q, m.v, m.A_d, m.B_d, m.d_d, 10.0, 1.0)
+    launches = tpwl_select.launches
+    got = tpwl_select(x[:B].to(dtype), *dic, index_only=k)
+    assert tpwl_select.launches == launches + 1
+    _assert_select_agrees(got, tpwl_select_plain(x[:B].to(dtype), *dic, k),
+                          near_tie[:B], k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_select_kernel_takes_misaligned_views_and_nan_states(
+        campaign_states, dtype):
+    """x a slice at an odd offset, the dictionary and the row arrays views
+    that start one element into their storage (no 16-byte copies), and a
+    NaN state, which gets index 0 as torch.argmin gives it."""
+    model, x, near_tie = campaign_states
+    m = model.to(dtype=dtype)
+    B = 301
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    xs = shifted(x[:B].to(dtype))
+    xs[5] = float("nan")
+    near = near_tie[:B].clone()
+    near[5] = False
+    dic = [shifted(t) for t in (m.q, m.v, m.A_d, m.B_d, m.d_d)]
+    assert dic[0].data_ptr() % 16 != 0 and xs.data_ptr() % 16 != 0
+    for k in (0, 100):
+        got = tpwl_select(xs, *dic, 10.0, 1.0, index_only=k)
+        ref = tpwl_select_plain(xs, m.q, m.v, m.A_d, m.B_d, m.d_d, 10.0, 1.0,
+                                k)
+        assert int(got[0][5]) == 0 and int(ref[0][5]) == 0
+        _assert_select_agrees(got, ref, near, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_select_kernel_with_an_odd_coordinate_count(campaign_states, dtype):
+    """r = 29 (the campaign's first 29 coordinates): the kernel loads one
+    coordinate at a time there, two where r is even; same agreement."""
+    model, x, _ = campaign_states
+    r = 29
+    q, v = model.q[:, :r], model.v[:, :r]
+    xr = torch.cat([x[:, :r], x[:, 30:30 + r]], dim=1)[:777]
+    d = point_distances_batch(xr, q, v, 10.0, 1.0)
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    near_tie = (two[:, 1] - two[:, 0]) < 1e-6 * two[:, 0]
+    dic = [t.to(dtype).contiguous() for t in (q, v, model.A_d, model.B_d,
+                                              model.d_d)]
+    for k in (0, 259):
+        got = tpwl_select(xr.to(dtype), *dic, 10.0, 1.0, index_only=k)
+        ref = tpwl_select_plain(xr.to(dtype), *dic, 10.0, 1.0, k)
+        _assert_select_agrees(got, ref, near_tie, k)
 
 
 def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):

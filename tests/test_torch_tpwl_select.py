@@ -72,3 +72,43 @@ def test_ties_go_to_the_lowest_index():
     assert idx.tolist() == [1, 0]  # points 1 and 2 tie; 0 and 3 tie
     assert A_sel[:, 0, 0].tolist() == [1.0, 0.0]
 
+
+
+@pytest.fixture(scope="module")
+def campaign_reference(campaign):
+    """The JAX package's indices (calc_nearest_point) and rows (the Pallas
+    kernel, interpret mode) for every campaign state."""
+    model, X = campaign
+    idx = np.asarray(jax.vmap(model.calc_nearest_point)(jnp.asarray(X)))
+    rows = tpwl_gather_pallas(
+        jnp.asarray(X), model.q, model.v, model.A_d, model.B_d, model.d_d,
+        float(model.dist_w_q), float(model.dist_w_v), interpret=True)
+    return idx, [np.asarray(a) for a in rows]
+
+
+@pytest.mark.parametrize("third", [0, 1, 3])
+def test_index_only_gives_indices_everywhere_and_rows_after(
+        campaign, campaign_reference, third):
+    """index_only = k (0, B/3, B): every state's index as the JAX model's,
+    and rows only for states k.., as the Pallas kernel's for those states
+    (atol 1e-12)."""
+    model, X = campaign
+    ref_idx, ref_rows = campaign_reference
+    k = X.shape[0] * third // 3
+    q, v, A_d, B_d, d_d = _dictionary(model)
+    wq, wv = float(model.dist_w_q), float(model.dist_w_v)
+    idx, *rows = tpwl_select(torch.as_tensor(X), q, v, A_d, B_d, d_d, wq, wv,
+                             index_only=k)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    for got, ref in zip(rows, ref_rows):
+        assert got.shape == (X.shape[0] - k,) + ref.shape[1:]
+        np.testing.assert_allclose(got.numpy(), ref[k:], atol=1e-12)
+
+
+def test_index_only_outside_the_batch_raises():
+    q = torch.zeros((2, 1), dtype=torch.float64)
+    A = torch.zeros((2, 1, 1), dtype=torch.float64)
+    x = torch.zeros((3, 2), dtype=torch.float64)
+    for k in (-1, 4):
+        with pytest.raises(ValueError, match="index_only"):
+            tpwl_select(x, q, q, A, A, A[:, 0], 1.0, 1.0, index_only=k)
