@@ -47,16 +47,39 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 9. path B, the single-trajectory sparse loop: BatchMPC(use_pallas=True),
    build for 10 windows (50 iterations, R = 1e-3 I): one launch of kernel 4
    and three of kernel 2 a window, finite logs, agreement of the f32 and
-   the f64 card runs with the f64 CPU run, and a profiler pass.
+   the f64 card runs with the f64 CPU run, and a profiler pass;
+10. GuSTO fused, condensed: GuSTOJit(TPWLGuSTO(model), N=5, Qz=100 I,
+   R=1e-3 I, cables in [0, 1500], 5 SCP iterations of 50 ADMM iterations,
+   K^-1 x-step).solve_batch_fused at B=64 on bench.py:280-291's inputs:
+   kernel 1 (shared form, n=21, m=641, per-QP A) against its plain version
+   on the first iteration's LOCPs and timed, kernel 2 against its plain
+   version on the first iteration's select calls (320 states on the
+   discrete tables, 640 on the continuous ones); one launch of kernel 1 and
+   two of kernel 2 an SCP iteration; solves/s, the converged share, device
+   time by kernel;
+11. GuSTO fused, sparse: the same with formulation="sparse" (n=386,
+   m=1126, beyond a cluster): the streaming kernel 3, in f32 and f64;
+12. GuSTO real-time: GuSTO(TPWLGuSTO(model), condensed backend,
+   device_tr=True) behind GuSTOService for 4 MPC queries; only kernel 2
+   launches (the QP runs in plain PyTorch, as in XLA in the JAX package),
+   and it is held to its plain version at the queries' shapes; ms a query;
+13. the LTI service: LinearMPCService(LinearROM(tpwl_to_linear_rom(
+   artifact)), N=20, QuadraticCost(100 I, 1e-4 I, Qf=1000 I), condensed)
+   at bench.py:406-432's settings, a step timed with qp_backend "pallas"
+   (4 launches of kernel 1, n=80, m=160, B=1, also timed alone) and "xla".
+Paths 10-13 also run in f64 on the card and on the CPU (10 and 11 at
+their full B=64): identical iteration counts and flags, x and u within
+F64_CPU_AGREE_TOL of their scale; their f32 runs must be finite and within
+the tolerances stated below.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The last three lines of standard output are the per-kernel JSON
 record, the card's name and power limit, and {"ok": true, "device":
 {...}}. The full record is also written to build/chip_smoke.json. Without
-a card the script exits non-zero before printing any result. It takes about
-two minutes on an H100, the build included.
+a card the script exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -69,10 +92,21 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from soft_robot_control_tpu_torch.control import batch_mpc  # noqa: E402
 from soft_robot_control_tpu_torch.control.batch_mpc import (  # noqa: E402
     BatchMPC, equilibrate_qp, window_targets)
+from soft_robot_control_tpu_torch.control.linear_mpc import (  # noqa: E402
+    LinearMPCService)
+from soft_robot_control_tpu_torch.control.service import (  # noqa: E402
+    GuSTOService)
 from soft_robot_control_tpu_torch.core.constraints import (  # noqa: E402
     HyperRectangle)
+from soft_robot_control_tpu_torch.core.types import (  # noqa: E402
+    QuadraticCost, Target)
+from soft_robot_control_tpu_torch.models.interfaces import (  # noqa: E402
+    TPWLGuSTO)
+from soft_robot_control_tpu_torch.models.linear import (  # noqa: E402
+    LinearROM, tpwl_to_linear_rom)
 from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
     from_tpwl_dict, rollout_batch)
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
@@ -81,10 +115,13 @@ from soft_robot_control_tpu_torch.ops.admm_batched import (  # noqa: E402
     cluster_max_active, cluster_plan_built)
 from soft_robot_control_tpu_torch.ops.admm_single import (  # noqa: E402
     admm_single, admm_single_plain, prepare_single)
+from soft_robot_control_tpu_torch.ops import tpwl_select as select_ops  # noqa: E402,E501
 from soft_robot_control_tpu_torch.ops.tpwl_select import (  # noqa: E402
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
+from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
+from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp_condensed import (  # noqa: E402
     CondensedParams)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
@@ -123,6 +160,34 @@ N_F64_CLUSTER = 3           # horizon whose f64 sparse QP fits a cluster
 N_WIN_B = 10                # windows of the single-trajectory path
 ITERS = 100 // 4            # ADMM iterations per launch (100 in 4 stages)
 ITERS_B = 50                # iterations of the single-QP launch
+GUSTO_B = 64                # batch of the fused GuSTO paths and their check
+GUSTO_ITERS, GUSTO_QP_ITERS = 5, 50  # SCP iterations; ADMM iterations each
+RT_QUERIES = 4              # MPC queries of the real-time GuSTO path
+# ADMM iterations of its QPs (4 rho stages): at the default 400 the trust-
+# region slack's s >= 0 row is still violated when the residual gate reads
+# it, and the loop spends its 30 iterations re-solving the first QP
+RT_QP_ITERS = 1000
+LTI_N, LTI_STEPS = 20, 3    # LTI service horizon; steps held to the CPU
+# GuSTO's sparse LOCP (1e3 rho on 360 equality rows, a trust region, 50
+# iterations) amplifies f32 rounding more than path A's: the streaming
+# kernel against the plain version in f32, 4.9e-3 of the solution's scale
+# (measured on an H100 80GB HBM3; in f64 8e-12 of it)
+GUSTO_SPARSE_KERNEL_F32_TOL = 1e-2
+# That limit admits the formulation's rounding; the kernel's own is bounded
+# apart: its f32 result's error against the plain version in f64 on the
+# same inputs, over the plain f32 result's error, measured on an H100 80GB
+# HBM3 at 1.40 (sparse) and 4.08 (condensed: each lane of the shared form
+# sums its 641 rows in one serial walk, the library in blocks)
+GUSTO_F32_ROUNDING_RATIO = {"condensed": 8.0, "sparse": 2.0}
+# f32 card runs of the GuSTO and LTI paths against the f64 CPU run: x and u,
+# max abs difference over max(|x|, 1) resp. max(|u|, 1). Measured on an
+# H100 80GB HBM3, the same in two runs: 3.8e-5 (GuSTO condensed), 2.5e-2
+# (GuSTO sparse: the f32 rounding above, in the kernel and the K^-1 builds
+# alike), 4.7e-7 (real-time), 7.5e-7 (LTI, either backend).
+GUSTO_F32_TOL = 4e-4
+GUSTO_SPARSE_F32_TOL = 1e-1
+GUSTO_RT_F32_TOL = 5e-6
+LTI_F32_TOL = 1e-5
 
 
 def check(ok, msg):
@@ -194,10 +259,18 @@ def make_mpc(model, dtype, device, path="condensed", horizon=N):
 def feasible_targets(model, B, n_win):
     """bench.py's quality targets: the model's own z-response to smooth
     admissible cable inputs, windowed (B, n_win, N+1, n_z)."""
-    dt = model.pre_discretized_dt
     T_q = n_win * N_REPLAN + N + 1
+    zq = feasible_outputs(model, B, T_q + 1)
+    return np.stack([window_targets(zq[b, :T_q], n_win, N_REPLAN, N)
+                     for b in range(B)])
+
+
+def feasible_outputs(model, B, T):
+    """The model's own output z (B, T, n_z) under smooth admissible cable
+    inputs from the zero state: targets it can track."""
+    dt = model.pre_discretized_dt
     rng = np.random.default_rng(11)
-    tq = dt * np.arange(T_q + 1)
+    tq = dt * np.arange(T)
     u_ref = 0.5 * 1500.0 * (1.0 + np.sin(
         2 * np.pi * tq[None, :, None] / 4.0
         + rng.uniform(0, 2 * np.pi, size=(B, 1, model.input_dim))))
@@ -205,9 +278,7 @@ def feasible_targets(model, B, n_win):
                      device=model.device)
     X = rollout_batch(model, x0, torch.as_tensor(
         u_ref, dtype=model.q.dtype, device=model.device), dt)
-    zq = (X @ model.H.T + model.z_ref).cpu().numpy()
-    return np.stack([window_targets(zq[b, :T_q], n_win, N_REPLAN, N)
-                     for b in range(B)])
+    return (X @ model.H.T + model.z_ref).cpu().numpy()[:, :T]
 
 
 def rel_track(z, zt):
@@ -431,16 +502,47 @@ def phase_single(mpc64, mpc, x_qp, zt, card):
     return out
 
 
-def phase_select(model64, model, x64, card):
-    """Kernel 2 against its plain version: identical indices away from
-    near-ties and bitwise-equal rows, f64 and f32, at B=5120, a ragged
-    B=5119 and B=3072 with index_only=1024; then the plan, tick and
-    index-only launches timed in f32."""
-    d64 = point_distances_batch(x64, model64.q, model64.v, model64.dist_w_q,
-                                model64.dist_w_v)
+def hold_select(tag, args, k=0):
+    """One launch of kernel 2 on args (x, q, v, A, B, d, w_q, w_v) against
+    its plain version: identical indices away from near-ties (an f64 gap
+    under NEAR_TIE of the distance, from the call's own inputs), as many
+    rows as states from k on, and bitwise-equal rows where the indices
+    agree."""
+    x = args[0]
+    B = x.shape[0]
+    d64 = point_distances_batch(*(a.double() if torch.is_tensor(a) else a
+                                  for a in (x,) + tuple(args[1:3])
+                                  + tuple(args[6:8])))
     two = torch.topk(d64, 2, dim=1, largest=False).values
     near_tie = (two[:, 1] - two[:, 0]) < NEAR_TIE * two[:, 0]
-    out = {"near_ties": int(near_tie.sum())}
+    got = tpwl_select(*args, index_only=k)
+    ref = tpwl_select_plain(*args, k)
+    torch.cuda.synchronize()
+    same = got[0] == ref[0]
+    check(bool((same | near_tie).all()),
+          f"tpwl_select {tag}: {int((~same & ~near_tie).sum())} "
+          "index differences away from near-ties")
+    check(all(a.shape[0] == B - k for a in got[1:]),
+          f"tpwl_select {tag}: {got[1].shape[0]} rows, expected {B - k}")
+    err = max([0.0] + [float(e.abs().max()) for e in (
+        a[same[k:]] - b[same[k:]] for a, b in zip(got[1:], ref[1:]))
+        if e.numel()])
+    check(err == 0.0, f"tpwl_select {tag}: gathered rows differ")
+    out = {"index_differences": int((~same).sum()), "max_abs_err": err,
+           "near_ties": int(near_tie.sum()),
+           "distinct_points": int(torch.unique(got[0]).numel())}
+    print(f"[tpwl_select] {tag}: {out['index_differences']} index "
+          f"differences, all at near-ties (f64 gap < {NEAR_TIE} rel; "
+          f"{out['near_ties']} near-ties), gathered rows bitwise equal, "
+          f"{out['distinct_points']} distinct points")
+    return out
+
+
+def phase_select(model64, model, x64, card):
+    """Kernel 2 against its plain version (hold_select), f64 and f32, at
+    B=5120, a ragged B=5119 and B=3072 with index_only=1024; then the
+    plan, tick and index-only launches timed in f32."""
+    out = {}
     B_plan, B_tick = N * B_MAIN, (1 + N_REPLAN) * B_MAIN
     for mdl in (model64, model):
         dic = (mdl.q, mdl.v, mdl.A_d, mdl.B_d, mdl.d_d, mdl.dist_w_q,
@@ -448,29 +550,7 @@ def phase_select(model64, model, x64, card):
         for B, k in ((B_plan, 0), (B_plan - 1, 0), (B_tick, B_MAIN)):
             x = x64[:B].to(mdl.q.dtype)
             tag = f"{str(x.dtype)[6:]} B={B} index_only={k}"
-            got = tpwl_select(x, *dic, index_only=k)
-            ref = tpwl_select_plain(x, *dic, k)
-            torch.cuda.synchronize()
-            same = got[0] == ref[0]
-            check(bool((same | near_tie[:B]).all()),
-                  f"tpwl_select {tag}: {int((~same & ~near_tie[:B]).sum())} "
-                  "index differences away from near-ties")
-            check(all(a.shape[0] == B - k for a in got[1:]),
-                  f"tpwl_select {tag}: {got[1].shape[0]} rows, expected "
-                  f"{B - k}")
-            err = max([0.0] + [float(e.abs().max()) for e in (
-                a[same[k:]] - b[same[k:]] for a, b in zip(got[1:], ref[1:]))
-                if e.numel()])
-            check(err == 0.0, f"tpwl_select {tag}: gathered rows differ")
-            out[tag] = {"index_differences": int((~same).sum()),
-                        "max_abs_err": err, "distinct_points": int(
-                            torch.unique(got[0]).numel())}
-            print(f"[tpwl_select] {tag}: "
-                  f"{out[tag]['index_differences']} index differences, all "
-                  f"at near-ties (f64 gap < {NEAR_TIE} rel; "
-                  f"{int(near_tie[:B].sum())} near-ties), gathered rows "
-                  f"bitwise equal, {out[tag]['distinct_points']} distinct "
-                  "points")
+            out[tag] = hold_select(tag, (x,) + dic, k)
     dic = (model.q, model.v, model.A_d, model.B_d, model.d_d,
            model.dist_w_q, model.dist_w_v)
     P, r = model.q.shape
@@ -670,6 +750,366 @@ def phase_single_loop(mpc, model64, zt1, card):
                                                     ref, tol)
     return out
 
+@contextlib.contextmanager
+def recording(module, name, n=None, clone=8):
+    """Within the block, record the positional arguments of the first n
+    calls (every call if n is None) that the code makes to module.name (a
+    kernel wrapper, or the select kernel's launch, as that module looks it
+    up): the first `clone` copied, the rest as given. Yields the list of
+    calls."""
+    real = getattr(module, name)
+    seen = []
+
+    def record(*a, **k):
+        if n is None or len(seen) < n:
+            seen.append([t.clone() if i < clone and torch.is_tensor(t) else t
+                         for i, t in enumerate(a)])
+        return real(*a, **k)
+
+    setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def hold_path_selects(tag, model, calls):
+    """hold_select on the first launch of each shape and table that a
+    path made of kernel 2 (recorded at ops.tpwl_select._launch, with the
+    states copied and the dictionary tables as given)."""
+    out, seen = {}, set()
+    for a in calls:
+        table = "A_c" if a[3] is model.A_c else "A_d"
+        key = (a[0].shape[0], table)
+        if key in seen:
+            continue
+        seen.add(key)
+        t = f"{tag} {str(a[0].dtype)[6:]} {key[0]} states on {table}"
+        out[t] = hold_select(t, a[:8], a[8])
+    check(bool(out), f"{tag}: no launch of tpwl_select to hold")
+    return out
+
+
+def kernel_row(tag, wrapper, args, iters, card, reps):
+    """Time a batched ADMM kernel on the f32 arguments of a path's launch,
+    beside its plain version and its bound."""
+    B, n, mc = args[2].shape[0], args[2].shape[1], args[3].shape[1]
+    ms = cuda_ms(lambda: wrapper(*args, iters), reps)
+    clk = clocks()
+    plain_ms = cuda_ms(lambda: admm_batched_plain(*args, iters), 3)
+    nbytes, flops = admm_work(B, n, mc, iters)
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[{tag}] {wrapper.__name__} f32 B={B} n={n} m={mc} {iters} iters: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}) [{card}; after it SM clock, max, "
+          f"power, temperature: {clk}]")
+    return dict(kernel=wrapper.__name__, B=B, n=n, m=mc, iters=iters, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops, clocks=clk)
+
+
+def rel_diff(got, ref):
+    """max |got - ref| over max(max |ref|, 1)."""
+    got, ref = np.asarray(got, float), np.asarray(ref, float)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1.0))
+
+
+def same_as_cpu(tag, name, got, ref, tol, iters_equal=True):
+    """A card run's (x, u, iters, converged) against the f64 CPU run's:
+    iteration counts and flags identical where `iters_equal`, x and u
+    within tol relative."""
+    d = max(rel_diff(got[0], ref[0]), rel_diff(got[1], ref[1]))
+    same = (np.array_equal(got[2], ref[2]) and np.array_equal(got[3], ref[3]))
+    print(f"[{tag}] {name} card vs f64 CPU: iterations and flags "
+          f"{'identical' if same else 'differ'}, x and u rel difference "
+          f"{d:.3e} (tol {tol})")
+    check(all(np.isfinite(np.asarray(a, float)).all() for a in got[:2]),
+          f"{tag} {name}: non-finite plan")
+    if iters_equal:
+        check(same, f"{tag} {name}: iterations {got[2]} / {ref[2]}, flags "
+              f"{got[3]} / {ref[3]}")
+    check(d <= tol, f"{tag} {name}: card vs CPU difference {d}")
+    return dict(rel_diff=d, same_iterations=bool(same))
+
+
+def make_gusto(model, dtype, formulation):
+    """bench.py section 4's GuSTOJit on the TPWL model: N=5, Qz=100 I,
+    R=1e-3 I, cables in [0, 1500] mN, GUSTO_ITERS SCP iterations of
+    GUSTO_QP_ITERS ADMM iterations, K^-1 x-step."""
+    nz, m_in = model.H.shape[0], model.input_dim
+    return GuSTOJit(TPWLGuSTO(model), N=N, dt=0.01, Qz=100.0 * np.eye(nz),
+                    R=1e-3 * np.eye(m_in),
+                    U=HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in)),
+                    max_iters=GUSTO_ITERS, qp_iters=GUSTO_QP_ITERS,
+                    x_step="kinv", formulation=formulation, dtype=dtype)
+
+
+def gusto_inputs(model, B):
+    """bench.py:280-291's batch: x0 = 0.05 N(0, 1) (seed 2), zero inputs,
+    the constant plan at x0, the output reference as the target."""
+    rng = np.random.default_rng(2)
+    x0 = 0.05 * rng.normal(size=(B, model.state_dim))
+    u0 = np.zeros((B, N, model.input_dim))
+    xi = np.repeat(x0[:, None], N + 1, axis=1)
+    z = np.repeat(model.z_ref.cpu().numpy()[None, None], N + 1,
+                  axis=1).repeat(B, axis=0)
+    return x0, u0, xi, z
+
+
+def gusto_result(r):
+    return [a.cpu().numpy() for a in (r.x, r.u, r.iters, r.converged)]
+
+
+def phase_gusto_fused(tag, formulation, model64, model, card, tol_f32):
+    """GuSTOJit.solve_batch_fused at B=GUSTO_B on the campaign dictionary:
+    the path's batched ADMM kernel against its plain version on the first
+    iteration's LOCPs (f64 and f32) and timed, and kernel 2 against its
+    plain version on the first iteration's select calls (the discrete rows
+    at the B*N linearization states, the continuous rows at the 2*B*N
+    states of the accuracy ratio); the path's launches (one ADMM launch an
+    SCP iteration, two select launches), solves/s, the converged share and
+    the device time by kernel; f64 and f32 card runs against the f64 CPU
+    run at the same B."""
+    kernel = admm_batched if formulation == "condensed" else admm_stream
+    gj = make_gusto(model, torch.float32, formulation)
+    gj64 = make_gusto(model64, torch.float64, formulation)
+    args = gusto_inputs(model, GUSTO_B)
+    out = {}
+    for g, mdl in ((gj64, model64), (gj, model)):
+        with recording(gusto_jit, "admm_batched", n=1) as qp, \
+                recording(select_ops, "_launch", n=2, clone=1) as sel:
+            g.solve_batch_fused(*args)
+        ka, iters = qp[0][:8], qp[0][8]
+        count = kernel.launches
+        got = kernel(*ka, iters)
+        check(kernel.launches == count + 1,
+              f"{kernel.__name__} did not launch its kernel")
+        key = f"{str(g.dtype)[6:]} B={GUSTO_B}"
+        plain = admm_batched_plain(*ka, iters)
+        out[key] = compare(kernel.__name__, f"{tag} {key}", got, plain,
+                           g.dtype, ADMM_F32_TOL if formulation == "condensed"
+                           else GUSTO_SPARSE_KERNEL_F32_TOL, f64_scaled=True)
+        if g.dtype == torch.float32:
+            # both f32 results against the plain version in f64 on the
+            # same (f32) inputs: the kernel's rounding beside the plain's
+            exact = admm_batched_plain(*[t.double() for t in ka], iters)
+            e_k, e_p = (max(float((a.double() - b).abs().max())
+                            for a, b in zip(r, exact)) for r in (got, plain))
+            limit = GUSTO_F32_ROUNDING_RATIO[formulation]
+            out[key].update(err_vs_f64_kernel=e_k, err_vs_f64_plain=e_p)
+            print(f"[{kernel.__name__}] {tag} {key} against f64 on the same "
+                  f"inputs: kernel {e_k:.3e}, plain {e_p:.3e} (ratio "
+                  f"{e_k / e_p:.2f}, limit {limit})")
+            check(e_k <= limit * e_p, f"{tag} {key}: the kernel's f32 error "
+                  f"{e_k} exceeds {limit} x the plain version's {e_p}")
+        out[f"select {key}"] = hold_path_selects(tag, mdl, sel)
+    out["kernel_row"] = kernel_row(tag, kernel, ka, iters, card, 20)
+
+    reset_counts()
+    r = gj.solve_batch_fused(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in KERNELS}
+    want.update({kernel.__name__: GUSTO_ITERS, "tpwl_select": 2 * GUSTO_ITERS})
+    print(f"[{tag}] launches a solve of B={GUSTO_B}: {counts}")
+    check(counts == want, f"{tag}: launches {counts}, expected {want}")
+    x, u = r.x.cpu().numpy(), r.u.cpu().numpy()
+    check(x.shape == (GUSTO_B, N + 1, model.state_dim)
+          and u.shape == (GUSTO_B, N, model.input_dim), f"{tag}: shapes")
+    check(np.isfinite(x).all() and np.isfinite(u).all(), f"{tag}: non-finite")
+    conv = float(r.converged.float().mean())
+    runs_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gj.solve_batch_fused(*args)
+        torch.cuda.synchronize()
+        runs_ms.append(1e3 * (time.perf_counter() - t0))
+    t_solve = float(np.median(runs_ms))
+    print(f"[{tag}] {1e3 * GUSTO_B / t_solve:.1f} solves/s (B={GUSTO_B}, "
+          f"median of 5: {t_solve:.2f} ms a batch, f32; min "
+          f"{min(runs_ms):.2f}, max {max(runs_ms):.2f}); converged share "
+          f"{conv:.3f}; SCP iterations {np.bincount(r.iters.cpu().numpy())}"
+          f" [{card}]")
+    out.update(launches=counts, solves_per_s=1e3 * GUSTO_B / t_solve,
+               batch_ms=t_solve, runs_ms=runs_ms, converged_share=conv)
+    out.update(profile_device(tag, lambda: gj.solve_batch_fused(*args),
+                              t_solve))
+
+    t0 = time.perf_counter()
+    ref = gusto_result(make_gusto(model64.to(device="cpu"), torch.float64,
+                                  formulation).solve_batch_fused(*args))
+    out["cpu_f64_s"] = time.perf_counter() - t0
+    print(f"[{tag}] f64 CPU reference at B={GUSTO_B}: "
+          f"{out['cpu_f64_s']:.2f} s")
+    reset_counts()
+    got64 = gusto_result(gj64.solve_batch_fused(*args))
+    counts64 = read_counts()
+    check(counts64[kernel.__name__] == GUSTO_ITERS,
+          f"{tag} f64: launches {counts64}")
+    out["launches_f64"] = counts64
+    out["cpu_f64"] = same_as_cpu(tag, f"f64 B={GUSTO_B}", got64, ref,
+                                 F64_CPU_AGREE_TOL)
+    out["cpu_f32"] = same_as_cpu(tag, f"f32 B={GUSTO_B}", gusto_result(
+        gj.solve_batch_fused(*args)), ref, tol_f32, iters_equal=False)
+    return out
+
+
+def phase_gusto_realtime(model64, model, card):
+    """GuSTO(device_tr=True) behind GuSTOService: RT_QUERIES MPC queries,
+    each one trust-region loop on the device (linearization through the
+    select kernel; the QP in plain PyTorch, as the JAX package runs it in
+    XLA), each next query from the plan's state N_REPLAN steps on. Kernel
+    2 is held to its plain version on the first call of each shape and
+    table that the queries made, in f32 and f64."""
+    T = 200
+    t = 0.01 * np.arange(T)
+    z_rel = feasible_outputs(model64, 1, T)[0] - model64.z_ref.cpu().numpy()
+
+    def service(mdl, dtype):
+        nz, m_in = mdl.H.shape[0], mdl.input_dim
+        return GuSTOService(
+            TPWLGuSTO(mdl), N, 0.01, 100.0 * np.eye(nz), 1e-3 * np.eye(m_in),
+            np.zeros(mdl.state_dim), t=t, z=z_rel,
+            U=HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in)),
+            locp_backend="condensed", device_tr=True,
+            device_tr_qp_iters=RT_QP_ITERS, dtype=dtype)
+
+    def queries(svc, times=None):
+        xs, us, iters = [], [], []
+        x = np.zeros(svc.gusto.n_x)
+        for k in range(RT_QUERIES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.send_request(0.01 * N_REPLAN * k, x, wait=True)
+            _, u, xp, _ = svc.get_solution()
+            if times is not None:
+                times.append(1e3 * (time.perf_counter() - t0))
+            xs.append(xp)
+            us.append(u)
+            iters.append(svc.gusto.itr_count)
+            x = xp[N_REPLAN]
+        return [np.stack(xs), np.stack(us), np.array(iters),
+                np.array([svc.gusto.plan_rejects])]
+
+    t0 = time.perf_counter()
+    svc = service(model, torch.float32)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    times = []
+    with recording(select_ops, "_launch", clone=1) as sel32:
+        got32 = queries(svc, times)
+    counts = read_counts()
+    print(f"[gusto real-time] launches over {RT_QUERIES} queries: {counts}")
+    check(counts["tpwl_select"] > 0 and all(
+        counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+        f"gusto real-time: launches {counts}")
+    print(f"[gusto real-time] {np.median(times):.2f} ms a query (host clock, "
+          f"median of {RT_QUERIES}: {', '.join(f'{x:.1f}' for x in times)} "
+          f"ms; SCP iterations {got32[2].tolist()}, plan rejects "
+          f"{int(got32[3][0])}; set-up {setup_s:.2f} s), f32 [{card}]")
+    out = dict(launches=counts, query_ms=float(np.median(times)),
+               queries_ms=times, scp_iterations=got32[2].tolist(),
+               setup_s=setup_s)
+    with recording(select_ops, "_launch", clone=1) as sel64:
+        got64 = queries(service(model64, torch.float64))
+    for mdl, calls in ((model64, sel64), (model, sel32)):
+        out[f"select {str(mdl.q.dtype)[6:]}"] = hold_path_selects(
+            "gusto real-time", mdl, calls)
+    ref = queries(service(model64.to(device="cpu"), torch.float64))
+    out["cpu_f64"] = same_as_cpu("gusto real-time", "f64", got64, ref,
+                                 F64_CPU_AGREE_TOL)
+    out["cpu_f32"] = same_as_cpu("gusto real-time", "f32", got32, ref,
+                                 GUSTO_RT_F32_TOL, iters_equal=False)
+    return out
+
+
+def phase_lti(Cf, Hf, card, dev):
+    """The LTI MPC service step on the campaign's linear ROM at bench.py's
+    settings (N=20, Qz=100 I, R=1e-4 I, Qf=1000 I, cables in [0, 1500]),
+    condensed, with each QP backend: 'pallas' (four stages of the batched
+    ADMM kernel at B=1) and 'xla' (the adaptive solver). f32 steps timed
+    as bench.py times them; f64 card steps against the f64 CPU's."""
+    data = tpwl_to_linear_rom(ARTIFACT)
+    dt = 0.01
+
+    def service(bk, dtype, device):
+        lin = LinearROM(data, dt, Cf=Cf, Hf=Hf, device=device)
+        nz, m_in = lin.H.shape[0], lin.input_dim
+        tt = dt * np.arange(1200)
+        zt = np.zeros((len(tt), nz))
+        zt[:, 0] = 15.0 * np.sin(2 * np.pi * tt / 2.0)
+        zt[:, 1] = 7.5 * np.sin(4 * np.pi * tt / 2.0)
+        return LinearMPCService(
+            lin, LTI_N, dt, QuadraticCost(Q=100.0 * np.eye(nz),
+                                          R=1e-4 * np.eye(m_in),
+                                          Qf=1000.0 * np.eye(nz)),
+            Target(t=tt, z=zt - lin.z_ref.cpu().numpy()),
+            U=HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in)),
+            locp_backend="condensed", qp_backend=bk, dtype=dtype)
+
+    def steps(svc):
+        xs, us = [], []
+        x = np.zeros(svc.locp.spec.n_x)
+        for k in range(LTI_STEPS):
+            svc.send_request(0.37 + dt * k, x, wait=True)
+            _, u, xp, _ = svc.get_solution()
+            xs.append(xp)
+            us.append(u)
+            x = xp[1]
+        return [np.stack(xs), np.stack(us), np.zeros(1), np.zeros(1)]
+
+    out = {}
+    for bk in ("pallas", "xla"):
+        svc = service(bk, torch.float32, dev)
+        sdt, dev = svc.locp.spec.dtype, svc.device
+        t0_d = torch.as_tensor(0.37, dtype=sdt, device=dev)
+        x0_d = torch.zeros(svc.locp.spec.n_x, dtype=sdt, device=dev)
+        step = lambda: svc._fused_fn(t0_d, x0_d, svc._w, svc._y)
+        reset_counts()
+        step()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: 0 for k in KERNELS}
+        if bk == "pallas":
+            want["admm_batched"] = 4
+        print(f"[lti {bk}] launches a step: {counts}")
+        check(counts == want, f"lti {bk}: launches {counts}, expected {want}")
+        runs_ms = []
+        for _ in range(22):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            runs_ms.append(1e3 * (time.perf_counter() - t0))
+        runs_ms = runs_ms[2:]
+        ms = float(np.median(runs_ms))
+        print(f"[lti {bk}] {ms:.3f} ms a service step (host clock, median "
+              f"of 20; min {min(runs_ms):.3f}, max {max(runs_ms):.3f}), f32 "
+              f"[{card}]")
+        o = dict(launches=counts, step_ms=ms, runs_ms=runs_ms)
+        if bk == "pallas":
+            o.update(profile_device(f"lti {bk}", step, ms))
+            with recording(batch_mpc, "admm_batched", n=1) as qp:
+                step()
+            ka, iters = qp[0][:8], qp[0][8]
+            count = admm_batched.launches
+            got = admm_batched(*ka, iters)
+            check(admm_batched.launches == count + 1,
+                  "admm_batched did not launch its kernel")
+            o["f32 B=1"] = compare("admm_batched", f"lti {bk} f32 B=1", got,
+                                   admm_batched_plain(*ka, iters),
+                                   torch.float32, ADMM_F32_TOL)
+            o["kernel_row"] = kernel_row(f"lti {bk}", admm_batched, ka,
+                                         iters, card, 50)
+        ref = steps(service(bk, torch.float64, "cpu"))
+        o["cpu_f64"] = same_as_cpu(f"lti {bk}", "f64", steps(
+            service(bk, torch.float64, dev)), ref, F64_CPU_AGREE_TOL)
+        o["cpu_f32"] = same_as_cpu(f"lti {bk}", "f32", steps(svc), ref,
+                                   LTI_F32_TOL, iters_equal=False)
+        out[bk] = o
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -749,12 +1189,29 @@ def main():
         "path A", mpc_a, model64, zt, card, {**none, "admm_cluster": 4},
         {**none, "admm_stream": 4}, PATH_A_CPU_AGREE_TOL, 5)
     rec["path_b"] = phase_single_loop(mpc_b, model64, zt_b, card)
+    torch.cuda.empty_cache()
+
+    # 10.-13. GuSTO (fused, both formulations; the real-time query) and the
+    # LTI service
+    rec["gusto_condensed"] = phase_gusto_fused(
+        "gusto condensed", "condensed", model64, model, card, GUSTO_F32_TOL)
+    rec["gusto_sparse"] = phase_gusto_fused(
+        "gusto sparse", "sparse", model64, model, card, GUSTO_SPARSE_F32_TOL)
+    rec["gusto_realtime"] = phase_gusto_realtime(model64, model, card)
+    rec["lti"] = phase_lti(Cf, Hf, card, dev)
 
     k2 = rec["tpwl_select"]["plan"]
     paths = {"condensed": rec["condensed"]["launches"],
              "path_a": rec["path_a"]["launches"],
              "path_a_f64": rec["path_a"]["launches_f64"],
-             "path_b": rec["path_b"]["launches"]}
+             "path_b": rec["path_b"]["launches"],
+             "gusto_condensed": rec["gusto_condensed"]["launches"],
+             "gusto_condensed_f64": rec["gusto_condensed"]["launches_f64"],
+             "gusto_sparse": rec["gusto_sparse"]["launches"],
+             "gusto_sparse_f64": rec["gusto_sparse"]["launches_f64"],
+             "gusto_realtime": rec["gusto_realtime"]["launches"],
+             "lti_pallas": rec["lti"]["pallas"]["launches"],
+             "lti_xla": rec["lti"]["xla"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -792,6 +1249,9 @@ def main():
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
+    rec["kernel_rows"] = [rec["gusto_condensed"]["kernel_row"],
+                          rec["lti"]["pallas"]["kernel_row"],
+                          rec["gusto_sparse"]["kernel_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

@@ -2,12 +2,15 @@
 
 Held as float64 numpy arrays: the LOCP specs read them once when they build
 their static row layout and cast them to the compute dtype and device there.
-The QP reprojection (`project`) is not ported yet.
+Membership, violation and the Euclidean projection take tensors and run on
+their device, in their dtype; the projection solves its QP with the port's
+dense ADMM (`qp/admm.py:solve_qp_dense`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class Polyhedron:
@@ -20,6 +23,35 @@ class Polyhedron:
     @property
     def dim(self):
         return self.A.shape[1]
+
+    def _resid(self, x):
+        """A x - b over the leading batch axes of the tensor x (..., n)."""
+        x = torch.as_tensor(x)
+        A = torch.as_tensor(self.A, dtype=x.dtype, device=x.device)
+        b = torch.as_tensor(self.b, dtype=x.dtype, device=x.device)
+        return torch.einsum("ij,...j->...i", A, x) - b
+
+    def contains(self, x):
+        """True where x lies in the polyhedron (over leading batch axes)."""
+        return self._resid(x).amax(dim=-1) <= 0
+
+    def violation(self, x):
+        """2-norm of the positive part of the constraint residual (0 where
+        x is feasible), over leading batch axes."""
+        return torch.linalg.vector_norm(torch.clamp(self._resid(x), min=0.0),
+                                        dim=-1)
+
+    def project(self, x, iters: int = 4000):
+        """Euclidean projection of one point x (n,) onto the polyhedron:
+        min 0.5 ||y - x||^2  s.t.  A y <= b, by the dense ADMM QP solver."""
+        from soft_robot_control_tpu_torch.qp.admm import solve_qp_dense
+
+        x = torch.as_tensor(x)
+        A = torch.as_tensor(self.A, dtype=x.dtype, device=x.device)
+        b = torch.as_tensor(self.b, dtype=x.dtype, device=x.device)
+        P = torch.eye(A.shape[1], dtype=x.dtype, device=x.device)
+        l = torch.full_like(b, -float("inf"))
+        return solve_qp_dense(P, -x, A, l, b, max_iter=iters).x
 
 
 class HyperRectangle(Polyhedron):

@@ -3,11 +3,13 @@
 A dictionary of P linearization points {q, v, u, A_c, B_c, d_c} stacked
 into tensors, nearest-point selection by weighted distance,
 pre-discretization of the whole dictionary in one batched call, and the
-ROM-projected output and measurement maps C = Cf V, H = Hf V. The
-exponential-weighting mode is not ported yet.
+ROM-projected output and measurement maps C = Cf V, H = Hf V, the
+Jacobians at a batch of states in 'nn' (nearest point) or 'weighting'
+(exponentially weighted blend) mode, and rollouts.
 
-`rollout_batch` selects through the TPWL select kernel
-(ops/tpwl_select.py) at every step.
+Every nearest-point lookup (`select`, `get_jacobians` in 'nn' mode,
+`rollout`, `rollout_batch`) goes through the TPWL select kernel
+(ops/tpwl_select.py): one launch for all the states of a call.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from soft_robot_control_tpu_torch.core import discretize as disc
-from soft_robot_control_tpu_torch.core.packing import x2qv
+from soft_robot_control_tpu_torch.core.packing import qv2x, x2qv
 from soft_robot_control_tpu_torch.rom.pod import POD
 
 DISCR_METHOD_DEFAULT = "fe"
@@ -91,6 +93,16 @@ class TPWLModel:
     def input_dim(self) -> int:
         return self.u.shape[1]
 
+    @property
+    def output_dim(self):
+        return None if self.H is None else self.H.shape[0]
+
+    @property
+    def meas_dim(self):
+        return None if self.C is None else self.C.shape[0]
+
+    nonlinear_observer = False
+
     # output / measurement models ----------------------------------------
     def set_measurement_model(self, Cf):
         """C = Cf V, y_ref = Cf x_ref, V never materialized."""
@@ -103,6 +115,14 @@ class TPWLModel:
         H = self.rom.project_output_matrix(Hf)
         return self._replace(H=H, z_ref=_apply(Hf, self.rom.x_ref, H.dtype))
 
+    def x_to_zfyf(self, x, zf=False, yf=False):
+        """Full-order output (zf) or measurement (yf) of states x (..., n)."""
+        if zf and self.H is not None:
+            return x @ self.H.T + self.z_ref
+        if yf and self.C is not None:
+            return x @ self.C.T + self.y_ref
+        raise RuntimeError("Need to set output or meas. model")
+
     # point selection -----------------------------------------------------
     def point_distances(self, x):
         """Weighted distances of state x (n,) to every dictionary point."""
@@ -112,6 +132,63 @@ class TPWLModel:
 
     def calc_nearest_point(self, x):
         return torch.argmin(self.point_distances(x))
+
+    def calc_weighting_factors(self, x):
+        """Weights exp(-beta d_i / d_min) over the dictionary, normalized,
+        for states x (..., n); a state at distance 0 from a point puts
+        weight 1 on the first such point."""
+        from soft_robot_control_tpu_torch.ops.tpwl_select import (
+            point_distances_batch)
+
+        lead = x.shape[:-1]
+        dist = point_distances_batch(x.reshape(-1, x.shape[-1]), self.q,
+                                     self.v, self.dist_w_q, self.dist_w_v)
+        m_idx = torch.argmin(dist, dim=1, keepdim=True)
+        m = dist.gather(1, m_idx)
+        safe_m = torch.where(m == 0, torch.ones_like(m), m)
+        w = torch.exp(-self.beta * dist / safe_m)
+        w = w / w.sum(dim=1, keepdim=True)
+        one_hot = torch.zeros_like(dist).scatter_(1, m_idx, 1.0)
+        return torch.where(m == 0, one_hot, w).reshape(lead + dist.shape[1:])
+
+    # jacobians ------------------------------------------------------------
+    def get_jacobians(self, x, dt=None, u=None):
+        """(A, B, d) at the states x (..., n): continuous if dt is None,
+        else discrete. In 'nn' mode one launch of the select kernel fetches
+        the rows for every state: from the pre-discretized tables when dt
+        equals pre_discretized_dt, else from the continuous ones, whose rows
+        are then discretized when dt is given. Computed in the model's
+        dtype."""
+        lead = x.shape[:-1]
+        n, m = self.state_dim, self.input_dim
+        xb = x.reshape(-1, n).to(self.q.dtype)
+        if self.tpwl_method == "weighting":
+            w = self.calc_weighting_factors(xb)
+            A = torch.einsum("bp,pjk->bjk", w, self.A_c)
+            B = torch.einsum("bp,pjk->bjk", w, self.B_c)
+            d = w @ self.d_c
+            if dt is not None:
+                A, B, d = self.discretize_dynamics(A, B, d, dt)
+        elif self.tpwl_method == "nn":
+            cached = (self.pre_discretized_dt is not None and dt is not None
+                      and dt == self.pre_discretized_dt)
+            tables = ((self.A_d, self.B_d, self.d_d) if cached
+                      else (self.A_c, self.B_c, self.d_c))
+            from soft_robot_control_tpu_torch.ops.tpwl_select import (
+                tpwl_select)
+
+            _, A, B, d = tpwl_select(xb, self.q, self.v, *tables,
+                                     self.dist_w_q, self.dist_w_v)
+            if dt is not None and not cached:
+                A, B, d = self.discretize_dynamics(A, B, d, dt)
+        else:
+            raise RuntimeError("tpwl method should be nn or weighting")
+        return (A.reshape(lead + (n, n)), B.reshape(lead + (n, m)),
+                d.reshape(lead + (n,)))
+
+    def discretize_dynamics(self, A_c, B_c, d_c, dt):
+        return disc.discretize_affine(A_c, B_c, d_c, dt,
+                                      method=self.discr_method)
 
     # discretization ------------------------------------------------------
     def pre_discretize(self, dt) -> "TPWLModel":
@@ -126,6 +203,35 @@ class TPWLModel:
             self.A_c, self.B_c, self.d_c, dt, method=self.discr_method)
         return self._replace(A_d=A_d, B_d=B_d, d_d=d_d,
                              pre_discretized_dt=float(dt))
+
+    # simulation -------------------------------------------------------------
+    @staticmethod
+    def update_dynamics(x, u, A_d, B_d, d_d):
+        return ((A_d @ x[..., None]) + (B_d @ u[..., None]))[..., 0] + d_d
+
+    def update_state(self, x, u, dt):
+        """Next states of x (..., n) under inputs u (..., m)."""
+        A, B, d = self.get_jacobians(x, dt=dt)
+        return self.update_dynamics(x.to(A.dtype), u.to(A.dtype), A, B, d)
+
+    def rollout(self, x0, u, dt):
+        """Roll one trajectory forward: x (N+1, n_x), z (N+1, n_z) or None
+        without an output model; one select launch a step."""
+        x = torch.as_tensor(x0, dtype=self.q.dtype, device=self.device)
+        u = torch.as_tensor(u, dtype=self.q.dtype, device=self.device)
+        xs = [x]
+        for k in range(u.shape[0]):
+            x = self.update_state(x, u[k], dt)
+            xs.append(x)
+        x = torch.stack(xs)
+        z = self.x_to_zfyf(x, zf=True) if self.H is not None else None
+        return x, z
+
+    def get_characteristic_dx(self, dt):
+        """max |x_{k+1} - x_k| over the dictionary points stepped with
+        their own inputs."""
+        x = qv2x(self.q, self.v)
+        return (self.update_state(x, self.u, dt) - x).abs().amax(dim=0)
 
     def select(self, x, index_only: int = 0):
         """Nearest-point (idx, A_d, B_d, d_d) for states x (B, n_x), the

@@ -84,6 +84,37 @@ def _residuals(P, q, A, x, y, z):
     return pri, pri_sc, dua, dua_sc
 
 
+def accept_tolerances(dtype):
+    """(pri, dua): the relative KKT residuals (over max(scale, 1)) under
+    which a QP result that missed its own tolerance is still accepted, as
+    OSQP accepts 'solved inaccurate'. float32 bottoms out near 1e-4..1e-3."""
+    return (1e-3, 1e-2) if dtype == torch.float32 else (1e-5, 1e-4)
+
+
+def accepted(solved, pri, dua, pri_sc, dua_sc, dtype):
+    """(ok, pri_rel, dua_rel) as host values: a QP result is taken when it
+    was solved or both relative residuals pass accept_tolerances(dtype)."""
+    acc_pri, acc_dua = accept_tolerances(dtype)
+    pri_rel = float(pri) / max(1.0, float(pri_sc))
+    dua_rel = float(dua) / max(1.0, float(dua_sc))
+    return (bool(solved) or (pri_rel < acc_pri and dua_rel < acc_dua),
+            pri_rel, dua_rel)
+
+
+def kkt_residuals(P, q, A, l, u, w, y, n_dual: Optional[int] = None):
+    """(pri, dua, pri_sc, dua_sc) in OSQP's convention at (w, y), z being
+    Aw clipped to [l, u], for a batch: P (B,n,n), A (B,m,n), vectors (B,.).
+    n_dual: the dual residual over the first n_dual variables only."""
+    amax = lambda a: a.abs().amax(dim=-1)
+    Aw = torch.einsum("bmn,bn->bm", A, w)
+    z = torch.clamp(Aw, l, u)
+    Pw = torch.einsum("bij,bj->bi", P, w)
+    Aty = torch.einsum("bmn,bm->bn", A, y)
+    return (amax(Aw - z), amax((Pw + q + Aty)[:, :n_dual]),
+            torch.maximum(amax(Aw), amax(z)),
+            torch.maximum(torch.maximum(amax(Pw), amax(Aty)), amax(q)))
+
+
 def _polish(P, q, A, l, u, y, delta=1e-7, refine_steps: int = 3):
     """OSQP-style solution polishing.
 

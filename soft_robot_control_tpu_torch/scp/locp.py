@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from soft_robot_control_tpu_torch.qp.admm import solve_qp_dense
+from soft_robot_control_tpu_torch.qp.admm import accepted, solve_qp_dense
 from soft_robot_control_tpu_torch.utils.device import as_tensor, resolve_device
 
 
@@ -392,16 +392,9 @@ class LOCP:
         if self.warm_start:
             self._w_prev = sol.x
             self._y_prev = sol.y
-        # accept 'solved inaccurate' results (OSQP semantics), relative to
-        # the problem's residual scales; f32 bottoms out near 1e-4..1e-3
-        if self.spec.dtype == torch.float32:
-            acc_pri, acc_dua = 1e-3, 1e-2
-        else:
-            acc_pri, acc_dua = 1e-5, 1e-4
-        pri_rel = float(sol.pri_res) / max(1.0, float(sol.pri_sc))
-        dua_rel = float(sol.dua_res) / max(1.0, float(sol.dua_sc))
-        success = bool(sol.solved) or (pri_rel < acc_pri and
-                                       dua_rel < acc_dua)
+        # accept 'solved inaccurate' results (OSQP semantics)
+        success = accepted(sol.solved, sol.pri_res, sol.dua_res, sol.pri_sc,
+                           sol.dua_sc, self.spec.dtype)[0]
         return (Jstar, True, self) if success else (np.inf, False, None)
 
     def get_solution(self):

@@ -23,3 +23,8 @@ def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     if torch.is_tensor(a):
         return a.to(device=device, dtype=dtype)
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def to_numpy(a) -> np.ndarray:
+    """`a` (tensor on any device, array or list) as a numpy array."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)

@@ -176,11 +176,22 @@ def test_condensed_assemble_and_recover_x():
 
 
 def test_condensed_spec_refuses_unported_options():
+    """The trust region, X, the nonlinear observer's output map and Qzf
+    were refused until the condensed LOCP was completed; each is now taken,
+    with the JAX spec's dimensions. What both packages still refuse is a
+    terminal set Xf (CondensedLOCPAdapter)."""
     for kw in (dict(trust_region=True), dict(X=tcon.Polyhedron([[1.0]], [1.0])),
                dict(nonlinear_observer=True), dict(Qzf=np.eye(1))):
-        with pytest.raises(NotImplementedError):
-            tlc.CondensedSpec(2, np.eye(1), np.eye(1), np.eye(1),
-                              device="cpu", **kw)
+        ts = tlc.CondensedSpec(2, np.eye(1), np.eye(1), np.eye(1),
+                               device="cpu", **kw)
+        if "X" in kw:
+            kw["X"] = jcon.Polyhedron([[1.0]], [1.0])
+        js = jlc.CondensedSpec(2, np.eye(1), np.eye(1), np.eye(1), **kw)
+        assert (ts.n_var, ts.n_con) == (js.n_var, js.n_con)
+    with pytest.raises(NotImplementedError, match="terminal-set"):
+        tlc.CondensedLOCPAdapter(2, np.eye(1), np.eye(1), np.eye(1),
+                                 Xf=tcon.Polyhedron([[1.0]], [1.0]),
+                                 device="cpu")
 
 
 def test_window_targets_and_demo_targets():

@@ -18,6 +18,7 @@ from torch_helpers import (CAMPAIGN_PARAMS, campaign_dict,  # noqa: F401
 
 from soft_robot_control_tpu_torch.control.batch_mpc import BatchMPC
 from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
+from soft_robot_control_tpu_torch.models.interfaces import TPWLGuSTO
 from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
 from soft_robot_control_tpu_torch.ops import build
 from soft_robot_control_tpu_torch.ops.admm_batched import (
@@ -31,6 +32,8 @@ from soft_robot_control_tpu_torch.ops.admm_single import (admm_single,
 from soft_robot_control_tpu_torch.ops.tpwl_select import (
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv
+from soft_robot_control_tpu_torch.scp import gusto_jit
+from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit
 
 pytestmark = pytest.mark.cuda
 
@@ -67,13 +70,16 @@ def _assert_close(got, ref, dtype, tol):
 
 
 @pytest.mark.parametrize("B", [1, 3, 37, 1024])
-@pytest.mark.parametrize("n,m", [(20, 40), (7, 13), (33, 70), (100, 120)])
+@pytest.mark.parametrize("n,m", [(20, 40), (7, 13), (33, 70), (100, 120),
+                                 (21, 641), (80, 160)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
 def test_admm_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
     """Kernel 1 in its register form (f32 at the condensed LOCP's size and
-    at a ragged smaller one) and its shared form (f64, and past 32
-    variables), with infinite bounds on some rows, at a ragged B too."""
+    at a ragged smaller one) and its shared form (f64, past 32 variables,
+    and at the sizes of GuSTO's condensed LOCP with its trust region, odd
+    n=21 and m=641, and of the LTI service's LOCP, n=80 and m=160), with
+    infinite bounds on some rows, at a ragged B too."""
     args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=B,
                                                    inf_rows=m // 8)]
     assert kernel_for(n, m, args[0].element_size()) == "admm_batched"
@@ -86,11 +92,13 @@ def test_admm_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
 
 
 @pytest.mark.parametrize("B,n,m", [(1, 380, 400), (3, 380, 400),
-                                   (5, 12, 16), (2, 70, 33)])
+                                   (5, 12, 16), (2, 70, 33),
+                                   (64, 386, 1126)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
 def test_stream_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
-    """Kernel 3 at the sparse LOCP's size and at sizes that exercise its
+    """Kernel 3 at the sparse LOCP's size, at GuSTO's sparse LOCP's (n=386,
+    not a multiple of 4, m=1126) and at sizes that exercise its
     thread-group layout (several column groups, ragged warps), with
     infinite bounds."""
     args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=n,
@@ -415,3 +423,80 @@ def test_sparse_closed_loop_on_the_card_matches_the_cpu(cuda_device, path,
     diff = np.linalg.norm(logs[str(cuda_device)] - ref)
     assert diff <= tol * np.linalg.norm(ref - ref.mean(axis=-2,
                                                        keepdims=True))
+
+
+def _gusto(dev, dtype, formulation, B):
+    """bench.py section 4's GuSTOJit on a 64-point campaign subset and a
+    batch of B problems from its inputs."""
+    data = campaign_dict(np.arange(0, 1087, 17)[:64])
+    Cf, Hf = campaign_output_maps()
+    model = from_tpwl_dict(data, params=CAMPAIGN_PARAMS, Cf=Cf, Hf=Hf,
+                           discr_method="be", device=dev)
+    gj = GuSTOJit(TPWLGuSTO(model), N=5, dt=0.01, Qz=100.0 * np.eye(3),
+                  R=1e-3 * np.eye(4),
+                  U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
+                  max_iters=5, qp_iters=50, x_step="kinv",
+                  formulation=formulation, dtype=dtype)
+    rng = np.random.default_rng(2)
+    x0 = 0.05 * rng.normal(size=(B, 60))
+    z = np.repeat(model.z_ref.cpu().numpy()[None, None], 6, 1).repeat(B, 0)
+    return gj, (x0, np.zeros((B, 5, 4)), np.repeat(x0[:, None], 6, 1), z)
+
+
+@pytest.mark.parametrize("formulation", ["condensed", "sparse"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gusto_locps_on_the_card(cuda_device, monkeypatch, formulation,
+                                 dtype):
+    """The batched ADMM launch of GuSTO's fused loop at B=64, on the LOCPs
+    of its first SCP iteration (per-problem A with the trust-region rows,
+    bounds of 1e30): kernel 1's shared form for the condensed LOCP (n=21,
+    m=641), the streaming kernel for the sparse one (n=386, m=1126), against
+    the plain version, in f64 to 1e-9 and in f32 to 1e-4 (condensed) and
+    1e-2 (sparse: its 1e3 equality rho and 50 iterations amplify f32
+    rounding, 4.9e-3 measured on an H100) of the solution's scale (1e3 to
+    1e4: cable forces and their duals)."""
+    gj, args = _gusto(cuda_device, dtype, formulation, 64)
+    seen = []
+    real = gusto_jit.admm_batched
+
+    def record(*a):
+        seen.append([t.clone() for t in a[:8]] + [a[8]])
+        return real(*a)
+
+    monkeypatch.setattr(gusto_jit, "admm_batched", record)
+    admm_batched.launches = admm_stream.launches = 0
+    gj.solve_batch_fused(*args)
+    kernel = admm_batched if formulation == "condensed" else admm_stream
+    assert kernel.launches == 5
+    ka, iters = seen[0][:8], seen[0][8]
+    assert tuple(ka[1].shape) == ((64, 641, 21) if formulation == "condensed"
+                                  else (64, 1126, 386))
+    got = kernel(*ka, iters)
+    ref = admm_batched_plain(*ka, iters)
+    torch.cuda.synchronize()
+    scale = max(max(float(b.abs().max()) for b in ref), 1.0)
+    tol = scale * (1e-9 if dtype == torch.float64 else
+                   1e-4 if formulation == "condensed" else 1e-2)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("formulation", ["condensed", "sparse"])
+def test_gusto_fused_on_the_card_matches_the_cpu(cuda_device, formulation):
+    """solve_batch_fused in f64 on the card against the same call on the
+    CPU: identical iteration counts and flags, x and u to 1e-6 of their
+    scale; one ADMM launch and two select launches an SCP iteration."""
+    gj, args = _gusto(cuda_device, torch.float64, formulation, 4)
+    admm_batched.launches = admm_stream.launches = tpwl_select.launches = 0
+    got = gj.solve_batch_fused(*args)
+    assert (admm_batched.launches + admm_stream.launches,
+            tpwl_select.launches) == (5, 10)
+    ref = _gusto("cpu", torch.float64, formulation, 4)[0].solve_batch_fused(
+        *args)
+    assert torch.equal(got.iters.cpu(), ref.iters)
+    assert torch.equal(got.converged.cpu(), ref.converged)
+    for k in ("x", "u"):
+        r = getattr(ref, k)
+        d = float((getattr(got, k).cpu() - r).abs().max())
+        assert d <= 1e-6 * max(float(r.abs().max()), 1.0)
