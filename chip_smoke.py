@@ -71,6 +71,20 @@ Paths 10-13 also run in f64 on the card and on the CPU (10 and 11 at
 their full B=64): identical iteration counts and flags, x and u within
 F64_CPU_AGREE_TOL of their scale; their f32 runs must be finite and within
 the tolerances stated below.
+14. BatchSSMMPC fused: bench.py section 5 (bench.py:368-388) on the
+   trunk SSM artifact, BatchSSMMPC(Qz on the tip's x and y = 100, R = 1e-6
+   I, N=3, dt=0.02, N_replan=2, 50 ADMM iterations).build_fused at B=1024
+   for 4 windows from rest, on the seeded circle targets, f32, in both
+   formulations (condensed: kernel 1's register form at n=24, m=1; sparse:
+   its shared form at n=48, m=24): kernel 1 against its plain version on
+   the first window's launch in f32 and f64, with the f32 rounding ratio;
+   exactly one launch of kernel 1 a window and none of the others; the
+   f64 card run against the f64 CPU run at B=1024 (outputs about z_ref and
+   commands within F64_CPU_AGREE_TOL of their scale) and the f32 run within
+   SSM_F32_TOL; windows/s as bench.py times it, kernel 1 timed alone beside
+   its bound, a profiler pass. Then the Diamond SSM artifact at B=64 in
+   both formulations (n=12, m=1 and n=36, m=24): the same launch counts,
+   kernel check and agreement with the CPU, untimed.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The last three lines of standard output are the per-kernel JSON
@@ -94,7 +108,7 @@ sys.path.insert(0, HERE)
 
 from soft_robot_control_tpu_torch.control import batch_mpc  # noqa: E402
 from soft_robot_control_tpu_torch.control.batch_mpc import (  # noqa: E402
-    BatchMPC, equilibrate_qp, window_targets)
+    BatchMPC, BatchSSMMPC, equilibrate_qp, window_targets)
 from soft_robot_control_tpu_torch.control.linear_mpc import (  # noqa: E402
     LinearMPCService)
 from soft_robot_control_tpu_torch.control.service import (  # noqa: E402
@@ -107,6 +121,7 @@ from soft_robot_control_tpu_torch.models.interfaces import (  # noqa: E402
     TPWLGuSTO)
 from soft_robot_control_tpu_torch.models.linear import (  # noqa: E402
     LinearROM, tpwl_to_linear_rom)
+from soft_robot_control_tpu_torch.models.ssm import from_mat  # noqa: E402
 from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
     from_tpwl_dict, rollout_batch)
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
@@ -129,6 +144,11 @@ from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
 
 ARTIFACT = os.path.join(HERE, "examples", "diamond_tet",
                         "tpwl_model_snapshots.pkl")
+SSM_ARTIFACTS = {
+    "trunk": os.path.join(HERE, "examples", "trunk_tet",
+                          "trunk_SSM_model.mat"),
+    "diamond": os.path.join(HERE, "examples", "diamond_tet",
+                            "diamond_SSM_model.mat")}
 KERNELS = ("admm_batched", "tpwl_select", "admm_stream", "admm_cluster",
            "admm_single")
 WRAPPERS = {"admm_batched": admm_batched, "tpwl_select": tpwl_select,
@@ -188,6 +208,26 @@ GUSTO_F32_TOL = 4e-4
 GUSTO_SPARSE_F32_TOL = 1e-1
 GUSTO_RT_F32_TOL = 5e-6
 LTI_F32_TOL = 1e-5
+# BatchSSMMPC (phase 14): bench.py section 5's settings
+SSM_N, SSM_N_REPLAN, SSM_DT, SSM_QP_ITERS = 3, 2, 0.02, 50
+SSM_N_WIN, SSM_B, SSM_B_DIAMOND = 4, 1024, 64
+# f32 card logs against the f64 CPU run: max abs difference of the outputs
+# about z_ref and of the commands, over the reference's max abs. The
+# trunk's outputs move a few um about z_ref ~ 196 mm, some 250 f32 ulps of
+# it, and the Diamond's sparse LOCP carries the 1e3 equality rho: the port's
+# f32 run on the CPU against its f64 run reads 6.2e-3 (trunk, both
+# formulations), 5.9e-4 (Diamond condensed) and 5.0e-2 (Diamond sparse)
+SSM_F32_TOL = {"condensed": 2e-2, "sparse": 1.5e-1}
+# Kernel 1 in f32 on these LOCPs: its error against the plain version in
+# f64 on the same inputs within SSM_F32_ROUNDING_RATIO x the plain f32
+# version's (measured on an H100 80GB HBM3 at 0.53-1.98 over both
+# artifacts, formulations and B = 1, 3, 1024), and its difference from the
+# plain f32 version within the larger of the raw limit (1e-4 / 1e-3 of the
+# solution's scale) and twice the plain version's own f32 error: the
+# Diamond's LOCPs (K^-1 entries to 1.8e5 with R = 1e-6 I) put the plain
+# version's own f32 error at 0.9-1.4x the raw limit, so no other summation
+# order can meet the raw limit there
+SSM_F32_ROUNDING_RATIO = 2.0
 
 
 def check(ok, msg):
@@ -1111,6 +1151,161 @@ def phase_lti(Cf, Hf, card, dev):
     return out
 
 
+def make_ssm_mpc(model, dtype, device, formulation):
+    """bench.py section 5's BatchSSMMPC: Qz = 100 on the tip's x and y,
+    R = 1e-6 I, N=3, dt=0.02, N_replan=2, 50 ADMM iterations."""
+    Qz = np.zeros((model.output_dim, model.output_dim))
+    Qz[0, 0] = Qz[1, 1] = 100.0
+    return BatchSSMMPC(model, Qz, 1e-6 * np.eye(model.input_dim), N=SSM_N,
+                       dt=SSM_DT, N_replan=SSM_N_REPLAN,
+                       qp_iters=SSM_QP_ITERS, formulation=formulation,
+                       dtype=dtype, device=device)
+
+
+def ssm_targets(B, n_win):
+    """bench.py:376-384: a 2 mm circle through the start in the tip's
+    (x, y), one phase a loop from default_rng(7), shifted coordinates,
+    windowed (B, n_win, N+1, n_z)."""
+    T = n_win * SSM_N_REPLAN + SSM_N + 1
+    ts = SSM_DT * np.arange(T)
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(B):
+        ph = rng.uniform(0, 2 * np.pi)
+        zz = np.zeros((T, 6))
+        zz[:, 0] = 2.0 * np.cos(2 * np.pi * ts / 6.0 + ph) - 2.0 * np.cos(ph)
+        zz[:, 1] = 2.0 * np.sin(2 * np.pi * ts / 6.0 + ph) - 2.0 * np.sin(ph)
+        out.append(window_targets(zz, n_win, SSM_N_REPLAN, SSM_N))
+    return np.stack(out)
+
+
+def ssm_logs(logs, z_ref):
+    """(outputs about z_ref, commands) of a run, as f64 numpy."""
+    return (logs["z"].double().cpu().numpy() - z_ref,
+            logs["u"].double().cpu().numpy())
+
+
+def log_diff(got, ref):
+    """max |got - ref| over max |ref|, the larger of outputs and commands."""
+    return max(float(np.abs(g - r).max() / np.abs(r).max())
+               for g, r in zip(got, ref))
+
+
+def phase_ssm(tag, name, formulation, B, card, dev, timed):
+    """BatchSSMMPC.build_fused on an SSM artifact at B loops for SSM_N_WIN
+    windows from rest on `dev` (see the module docstring, phase 14);
+    `timed` adds windows/s, kernel 1 timed alone and a profiler pass."""
+    model64 = from_mat(SSM_ARTIFACTS[name], None, discrete=False,
+                       discr_method="be", device=dev)
+    z_ref = model64.z_ref.cpu().numpy()
+    zt, x0 = ssm_targets(B, SSM_N_WIN), np.zeros((B, model64.state_dim))
+    mpc = make_ssm_mpc(model64, torch.float32, dev, formulation)
+    run = mpc.build_fused(SSM_N_WIN)
+    run64 = make_ssm_mpc(model64, torch.float64, dev,
+                         formulation).build_fused(SSM_N_WIN)
+    out = {"qp": dict(zip(("n", "m"), mpc._qp_dims()))}
+    print(f"[{tag}] {name} SSM: n_x={mpc.n_x}, n_u={mpc.n_u}, "
+          f"n_z={mpc.n_z}; QP of n={out['qp']['n']}, m={out['qp']['m']}, "
+          f"B={B}")
+
+    # kernel 1 against its plain version on the first window's launch
+    for fn, dt in ((run64, torch.float64), (run, torch.float32)):
+        with recording(batch_mpc, "admm_batched", n=1) as qp:
+            fn(x0, zt)
+        ka, iters = qp[0][:8], qp[0][8]
+        count = admm_batched.launches
+        got = admm_batched(*ka, iters)
+        check(admm_batched.launches == count + 1,
+              "admm_batched did not launch its kernel")
+        key = f"{str(dt)[6:]} B={B}"
+        plain = admm_batched_plain(*ka, iters)
+        ratio = {}
+        tol_f32 = (ADMM_F32_TOL if formulation == "condensed"
+                   else SPARSE_F32_TOL)
+        if dt == torch.float32:
+            exact = admm_batched_plain(*[t.double() for t in ka], iters)
+            e_k, e_p = (max(float((a.double() - b).abs().max())
+                            for a, b in zip(r, exact)) for r in (got, plain))
+            ratio = dict(err_vs_f64_kernel=e_k, err_vs_f64_plain=e_p)
+            print(f"[admm_batched] {tag} {key} against f64 on the same "
+                  f"inputs: kernel {e_k:.3e}, plain {e_p:.3e} (ratio "
+                  f"{e_k / e_p:.2f}, limit {SSM_F32_ROUNDING_RATIO})")
+            check(e_k <= SSM_F32_ROUNDING_RATIO * e_p, f"{tag} {key}: the "
+                  f"kernel's f32 error {e_k} exceeds "
+                  f"{SSM_F32_ROUNDING_RATIO} x the plain version's {e_p}")
+            scale = max(max(float(b.abs().max()) for b in plain), 1.0)
+            tol_f32 = max(tol_f32, 2.0 * e_p / scale)
+        out[key] = compare("admm_batched", f"{tag} {key}", got, plain, dt,
+                           tol_f32, f64_scaled=True)
+        out[key].update(ratio)
+
+    # the path: exactly one launch of kernel 1 a window
+    want = {k: 0 for k in KERNELS}
+    want["admm_batched"] = SSM_N_WIN
+    for fn, dt in ((run, "f32"), (run64, "f64")):
+        torch.cuda.synchronize()
+        reset_counts()
+        logs = fn(x0, zt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"[{tag}] {dt} launches a run of {SSM_N_WIN} windows: {counts}")
+        check(counts == want, f"{tag} {dt}: launches {counts}, expected "
+              f"{want}")
+        out["launches" if dt == "f32" else "launches_f64"] = counts
+        T = SSM_N_WIN * SSM_N_REPLAN
+        check(tuple(logs["z"].shape) == (B, T, mpc.n_z)
+              and tuple(logs["u"].shape) == (B, T, mpc.n_u),
+              f"{tag} {dt}: log shapes")
+        out[f"logs_{dt}"] = ssm_logs(logs, z_ref)
+        check(all(np.isfinite(a).all() for a in out[f"logs_{dt}"]),
+              f"{tag} {dt}: non-finite logs")
+
+    # agreement with the port's f64 run on the CPU
+    t0 = time.perf_counter()
+    ref = ssm_logs(make_ssm_mpc(model64.to(device="cpu"), torch.float64,
+                                "cpu", formulation).build_fused(SSM_N_WIN)(
+                                    x0, zt), z_ref)
+    out["cpu_f64_s"] = time.perf_counter() - t0
+    print(f"[{tag}] f64 CPU reference at B={B}: {out['cpu_f64_s']:.2f} s; "
+          f"outputs move up to {np.abs(ref[0]).max():.4e} about z_ref, "
+          f"commands up to {np.abs(ref[1]).max():.4e}")
+    for dt, tol in (("f64", F64_CPU_AGREE_TOL),
+                    ("f32", SSM_F32_TOL[formulation])):
+        d = log_diff(out.pop(f"logs_{dt}"), ref)
+        out[f"cpu_rel_diff_{dt}"] = d
+        print(f"[{tag}] {dt} card vs f64 CPU: max log difference {d:.3e} "
+              f"of the logs' scale (tol {tol})")
+        check(d <= tol, f"{tag} {dt}: card vs CPU difference {d}")
+    if not timed:
+        return out
+
+    # windows/s as bench.py's timeit: warm-up 2, then 5 calls back to back
+    for _ in range(2):
+        run(x0, zt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        run(x0, zt)
+    torch.cuda.synchronize()
+    t_run = (time.perf_counter() - t0) / 5
+    runs_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run(x0, zt)
+        torch.cuda.synchronize()
+        runs_ms.append(1e3 * (time.perf_counter() - t0))
+    out.update(windows_per_s=B * SSM_N_WIN / t_run, run_ms=1e3 * t_run,
+               runs_ms=runs_ms)
+    print(f"[{tag}] {out['windows_per_s']:.1f} windows/s ({1e3 * t_run:.2f} "
+          f"ms per {SSM_N_WIN}-window run at B={B}, f32, mean of 5 back to "
+          f"back; runs synchronized one by one: "
+          f"{', '.join(f'{t:.2f}' for t in runs_ms)} ms) [{card}]")
+    out["kernel_row"] = kernel_row(tag, admm_batched, ka, iters, card, 50)
+    out["kernel_row"]["launches"] = SSM_N_WIN
+    out.update(profile_device(tag, lambda: run(x0, zt), 1e3 * t_run))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -1199,6 +1394,16 @@ def main():
         "gusto sparse", "sparse", model64, model, card, GUSTO_SPARSE_F32_TOL)
     rec["gusto_realtime"] = phase_gusto_realtime(model64, model, card)
     rec["lti"] = phase_lti(Cf, Hf, card, dev)
+    torch.cuda.empty_cache()
+
+    # 14. BatchSSMMPC fused (bench.py section 5), trunk timed at B=1024,
+    # the Diamond checked at B=64
+    for form in ("condensed", "sparse"):
+        rec[f"ssm_{form}"] = phase_ssm(f"ssm {form}", "trunk", form, SSM_B,
+                                       card, dev, True)
+        rec[f"ssm_diamond_{form}"] = phase_ssm(
+            f"ssm diamond {form}", "diamond", form, SSM_B_DIAMOND, card, dev,
+            False)
 
     k2 = rec["tpwl_select"]["plan"]
     paths = {"condensed": rec["condensed"]["launches"],
@@ -1211,15 +1416,21 @@ def main():
              "gusto_sparse_f64": rec["gusto_sparse"]["launches_f64"],
              "gusto_realtime": rec["gusto_realtime"]["launches"],
              "lti_pallas": rec["lti"]["pallas"]["launches"],
-             "lti_xla": rec["lti"]["xla"]["launches"]}
+             "lti_xla": rec["lti"]["xla"]["launches"],
+             "ssm_condensed": rec["ssm_condensed"]["launches"],
+             "ssm_sparse": rec["ssm_sparse"]["launches"],
+             "ssm_diamond_condensed": rec["ssm_diamond_condensed"][
+                 "launches"],
+             "ssm_diamond_sparse": rec["ssm_diamond_sparse"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
     def entry(name, replaces, path, err, k):
-        """One kernel's record; `launches` is the count on the path that
-        the kernel carries, `launches_by_path` the count on each."""
+        """One kernel's record on `path`; `launches` is the count on that
+        path, `launches_by_path` the count on each."""
         return {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
-                "replaces": ref + replaces, "launches": paths[path][name],
+                "replaces": ref + replaces, "path": path,
+                "launches": paths[path][name],
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -1246,12 +1457,21 @@ def main():
               rec["admm_single"]["float32"]["max_abs_err"],
               rec["admm_single"]),
     ]
+    # kernel 1 on the BatchSSMMPC path (phase 14), at its two new shapes
+    for form in ("condensed", "sparse"):
+        r = rec[f"ssm_{form}"]
+        kernels.append(entry("admm_batched", "pallas_admm.py:132",
+                             f"ssm_{form}",
+                             r[f"float32 B={SSM_B}"]["max_abs_err"],
+                             r["kernel_row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
     rec["kernel_rows"] = [rec["gusto_condensed"]["kernel_row"],
                           rec["lti"]["pallas"]["kernel_row"],
-                          rec["gusto_sparse"]["kernel_row"]]
+                          rec["gusto_sparse"]["kernel_row"],
+                          rec["ssm_condensed"]["kernel_row"],
+                          rec["ssm_sparse"]["kernel_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

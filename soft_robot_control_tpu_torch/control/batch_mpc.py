@@ -26,6 +26,12 @@ does:
 
 The semantics are those of the JAX package's BatchMPC (real-time mode:
 one LOCP per query, plan feedback with per-point DARE gains).
+
+`BatchSSMMPC` runs the same kind of batch on an SSM model, the model also
+the plant: each window relinearizes the polynomial dynamics and the
+nonlinear output chart along the shifted plan, solves one LOCP a loop (one
+launch of the batched ADMM kernel for the whole batch in `build_fused`)
+and runs N_replan feedforward ticks behind the manifold observer.
 """
 
 from __future__ import annotations
@@ -436,6 +442,182 @@ class BatchMPC:
         if self._run is None:
             raise RuntimeError("call build() first")
         return self._run(x_plant0, ekf_x0, z_target, noise, generator)
+
+
+class BatchSSMMPC:
+    """Batched closed-loop MPC on an SSM model, the model also the plant.
+
+    The SSM real-time configuration: each window relinearizes the
+    polynomial dynamics and the nonlinear chart along the shifted previous
+    plan (time-varying H_d, c_d in the QP objective), solves one LOCP a
+    loop with fixed-iteration ADMM through an explicit K^-1, and runs
+    N_replan feedforward ticks, with the algebraic manifold observer
+    x = W_map(z - z_ref) of the plant's output. There is no Ruiz
+    equilibration and no rho staging on this path. `build_fused` solves a
+    window's B LOCPs in one launch of the batched ADMM kernel; `build` and
+    `run_batch` solve them in plain PyTorch (the JAX package's XLA path).
+    """
+
+    def __init__(self, model, Qz, R, N: int, dt: float, N_replan: int = 1,
+                 U=None, dU=None, qp_iters: int = 100, rho: float = 0.1,
+                 x_step: str = "kinv", formulation: str = "condensed",
+                 dtype=torch.float64, device="cuda"):
+        """
+        model: SSMModel; it is cast to dtype and moved to device.
+        formulation: 'condensed' (states eliminated, N*n_u variables) or
+            'sparse' (states kept, the init and dynamics rows with the
+            OSQP 1e3 rho boost).
+        x_step: the sparse QP's x-step in `build`/`run_batch`: 'kinv'
+            (K^-1 built once a window) or any other value for a Cholesky
+            solve every iteration; `build_fused` always takes K^-1.
+        """
+        if formulation not in ("sparse", "condensed"):
+            raise ValueError(f"unknown formulation {formulation!r}")
+        dev = resolve_device(device)
+        self.device, self.dtype = dev, dtype
+        self.dt = float(dt)
+        self.N = int(N)
+        self.N_replan = int(N_replan)
+        m = model.to(dtype=dtype, device=dev)
+        self.model = m
+        self.n_x, self.n_u, self.n_z = m.state_dim, m.input_dim, m.output_dim
+        self.x_step = x_step
+        self.qp_iters = int(qp_iters)
+        self.formulation = formulation
+        t = lambda a: as_tensor(a, dtype, dev)
+        Qz, R = t(Qz), t(R)
+        self.spec = LOCPSpec(self.N, m.H, Qz, R, U=U, dU=dU,
+                             nonlinear_observer=True, is_tr_active=False,
+                             dtype=dtype, device=dev)
+        spec = self.spec
+        rho_vec = np.full(spec.n_con, rho)
+        nx = self.n_x
+        rho_vec[spec.r_init:spec.r_init + nx] *= OSQP_RHO_EQ_SCALE
+        rho_vec[spec.r_dyn:spec.r_dyn + self.N * nx] *= OSQP_RHO_EQ_SCALE
+        self.rho_vec = t(rho_vec)
+        if formulation == "condensed":
+            self.cspec = CondensedSpec(self.N, m.H, Qz, R, U=U, dU=dU,
+                                       nonlinear_observer=True, dtype=dtype,
+                                       device=dev)
+            self.rho_vec_c = torch.full((self.cspec.n_con,), rho,
+                                        dtype=dtype, device=dev)
+        self._run = None
+
+    def _qp_dims(self):
+        spec = self.cspec if self.formulation == "condensed" else self.spec
+        return spec.n_var, spec.n_con
+
+    def _lin_traj(self, x_plan, u_plan):
+        """Dynamics Jacobians at the first N plan points and the chart's at
+        all N+1, for a batch of plans (B, N+1, n_x), (B, N, n_u)."""
+        m = self.model
+        Ad, Bd, dd = m.get_jacobians(x_plan[:, :-1], u_plan, self.dt)
+        Hd, cd = m.get_observer_jacobians(x_plan)
+        return Ad, Bd, dd, Hd, cd
+
+    _shift_plan = BatchMPC._shift_plan
+
+    def _mpc_query(self, x0, x_plan, u_plan, z_win, warm, fused: bool):
+        """One LOCP a loop, linearized along its shifted plan. z_win holds
+        shifted targets (B, N+1, n_z)."""
+        x_plan, u_plan = self._shift_plan(x_plan, u_plan)
+        Ad, Bd, dd, Hd, cd = self._lin_traj(x_plan, u_plan)
+        Bsz = x0.shape[0]
+        w0, y0 = warm
+        zeros = lambda *shape: torch.zeros((Bsz,) + shape, dtype=self.dtype,
+                                           device=self.device)
+        if self.formulation == "condensed":
+            P, q, A, l, u, _, xfree, G = self.cspec.assemble(CondensedParams(
+                Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z_win,
+                u_des=zeros(self.N, self.n_u), Hd=Hd, cd=cd))
+            rho = self.rho_vec_c
+        else:
+            P, q, A, l, u, _ = self.spec.assemble(LOCPParams(
+                Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_plan, delta=1e4, omega=1.0,
+                z=z_win, zf=zeros(self.n_z), u_des=zeros(self.N, self.n_u),
+                Hd=Hd, cd=cd))
+            rho = self.rho_vec
+        if fused:
+            w, y = admm_batched(make_kinv(P, A, rho), A, q, l, u, rho, w0, y0,
+                                self.qp_iters)
+        elif self.formulation == "condensed" or self.x_step == "kinv":
+            w, y = admm_fixed_kinv(make_kinv(P, A, rho), q, A, l, u, w0, y0,
+                                   rho, self.qp_iters)
+        else:
+            w, y = admm_fixed(P, q, A, l, u, w0, y0, rho, self.qp_iters)
+        if self.formulation == "condensed":
+            u_plan = w.reshape(Bsz, self.N, self.n_u)
+            x_plan = self.cspec.recover_x(xfree, G, w)
+        else:
+            x_plan, u_plan, _ = self.spec.split(w)
+        return x_plan, u_plan, (w, y)
+
+    def _build_loop(self, n_windows: int, fused: bool):
+        """The batched closed loop over n_windows windows (see build_fused
+        for its signature)."""
+        m = self.model
+        N, N_rep, n_win = self.N, self.N_replan, int(n_windows)
+        dev, dt = self.device, self.dtype
+        n_var, n_con = self._qp_dims()
+
+        def run(x_plant0, z_target):
+            x_p = as_tensor(x_plant0, dt, dev)
+            z_target = as_tensor(z_target, dt, dev)
+            Bsz = x_p.shape[0]
+            x_plan = x_p[:, None].expand(-1, N + 1, -1)
+            u_plan = torch.zeros((Bsz, N, self.n_u), dtype=dt, device=dev)
+            warm = (torch.zeros((Bsz, n_var), dtype=dt, device=dev),
+                    torch.zeros((Bsz, n_con), dtype=dt, device=dev))
+            zs, us = [], []
+            for w in range(n_win):
+                # the manifold observer on the plant's measured output
+                x_hat = m.compute_RO_state(m.x_to_zfyf(x_p))
+                x_plan, u_plan, warm = self._mpc_query(
+                    x_hat, x_plan, u_plan, z_target[:, w], warm, fused)
+                for k in range(N_rep):
+                    u = u_plan[:, k]  # feedforward only
+                    x_p = m.update_state(x_p, u, self.dt)
+                    zs.append(m.x_to_zfyf(x_p))
+                    us.append(u)
+            return {"z": torch.stack(zs, dim=1), "u": torch.stack(us, dim=1)}
+
+        return run
+
+    def build(self, n_windows: int):
+        """The single-trajectory closed loop, its QPs solved in plain
+        PyTorch:
+
+            run(x_plant0 (n_x,), z_target (n_windows, N+1, n_z))
+              -> {"z": (T, n_z), "u": (T, n_u)}
+
+        with T = n_windows*N_replan, z_target the shifted targets and z the
+        unshifted outputs. `run_batch` runs the same loop on a batch."""
+        batched = self._build_loop(n_windows, fused=False)
+        self._run = batched
+
+        def run(x_plant0, z_target):
+            t = lambda a: as_tensor(a, self.dtype, self.device)[None]
+            return {k: v[0] for k, v in batched(t(x_plant0),
+                                                t(z_target)).items()}
+
+        return run
+
+    def build_fused(self, n_windows: int):
+        """The batch-fused closed loop; each window's B LOCPs go through one
+        launch of the batched ADMM kernel:
+
+            run(x_plant0 (B, n_x), z_target (B, n_windows, N+1, n_z))
+              -> {"z": (B, n_windows*N_replan, n_z),
+                  "u": (B, n_windows*N_replan, n_u)}
+        """
+        return self._build_loop(n_windows, fused=True)
+
+    def run_batch(self, x_plant0, z_target):
+        """The loop of the last `build` on a batch: x_plant0 (B, n_x),
+        z_target (B, n_windows, N+1, n_z)."""
+        if self._run is None:
+            raise RuntimeError("call build() first")
+        return self._run(x_plant0, z_target)
 
 
 def window_targets(z_traj, n_windows: int, N_replan: int, N: int):

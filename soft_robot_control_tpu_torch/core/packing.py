@@ -16,3 +16,9 @@ def x2qv(x):
     """Unpack x = [v; q] -> (q, v)."""
     n = x.shape[-1] // 2
     return x[..., n:], x[..., :n]
+
+
+def vq2qv(x):
+    """Reorder x = [v; q] -> [q; v]."""
+    q, v = x2qv(x)
+    return torch.cat((q, v), dim=-1)

@@ -1,11 +1,13 @@
-"""Carry a TPWL model across from the JAX package.
+"""Carry a TPWL or SSM model across from the JAX package.
 
 The JAX TPWLModel is a pytree whose children (`TPWLModel._children`) are
 arrays and whose static fields are discr_method, tpwl_method and
 pre_discretized_dt. A caller that holds such a model flattens it into a
 dict of numpy arrays, with the POD basis as the dict {"U", "q_ref",
 "v_ref"} under "rom" (the JAX POD's `get_info()`), and hands that dict to
-`model_from_arrays`. This module itself imports nothing of JAX.
+`model_from_arrays`. An SSMModel goes the same way through
+`ssm_model_arrays` and `ssm_model_from_arrays`. This module itself imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from soft_robot_control_tpu_torch.models.ssm import SSMModel
 from soft_robot_control_tpu_torch.models.tpwl import TPWLModel
 from soft_robot_control_tpu_torch.rom.pod import POD
 
@@ -51,3 +54,24 @@ def model_from_arrays(arrays: dict, device="cuda") -> TPWLModel:
                      tpwl_method=arrays["tpwl_method"],
                      pre_discretized_dt=arrays["pre_discretized_dt"],
                      device=device, **kw)
+
+
+_SSM_STATIC = ("state_dim", "input_dim", "output_dim", "SSM_order",
+               "ROM_order", "Ts", "discrete", "discr_method")
+
+
+def ssm_model_arrays(model) -> dict:
+    """The dict `ssm_model_from_arrays` takes, from any object with the
+    SSMModel attributes (the JAX model or this package's): its coefficient
+    arrays as numpy arrays and its static fields."""
+    out = {k: _np(getattr(model, k)) for k in SSMModel._children}
+    out.update({k: getattr(model, k) for k in _SSM_STATIC})
+    return out
+
+
+def ssm_model_from_arrays(arrays: dict, dtype=torch.float64,
+                          device="cuda") -> SSMModel:
+    """This package's SSMModel from the arrays and static fields of an SSM
+    model (see `ssm_model_arrays`), in `dtype` on `device`."""
+    return SSMModel(**{k: arrays[k] for k in SSMModel._children + _SSM_STATIC},
+                    dtype=dtype, device=device)

@@ -7,8 +7,9 @@ ROM-projected output and measurement maps C = Cf V, H = Hf V, the
 Jacobians at a batch of states in 'nn' (nearest point) or 'weighting'
 (exponentially weighted blend) mode, and rollouts.
 
-Every nearest-point lookup (`select`, `get_jacobians` in 'nn' mode,
-`rollout`, `rollout_batch`) goes through the TPWL select kernel
+Every nearest-point lookup by direct differences (`select`,
+`get_jacobians` in 'nn' mode, `rollout`, `rollout_batch` in its 'exact'
+and 'pallas' modes) goes through the TPWL select kernel
 (ops/tpwl_select.py): one launch for all the states of a call.
 """
 
@@ -163,12 +164,7 @@ class TPWLModel:
         n, m = self.state_dim, self.input_dim
         xb = x.reshape(-1, n).to(self.q.dtype)
         if self.tpwl_method == "weighting":
-            w = self.calc_weighting_factors(xb)
-            A = torch.einsum("bp,pjk->bjk", w, self.A_c)
-            B = torch.einsum("bp,pjk->bjk", w, self.B_c)
-            d = w @ self.d_c
-            if dt is not None:
-                A, B, d = self.discretize_dynamics(A, B, d, dt)
+            A, B, d = self._blend(self.calc_weighting_factors(xb), dt)
         elif self.tpwl_method == "nn":
             cached = (self.pre_discretized_dt is not None and dt is not None
                       and dt == self.pre_discretized_dt)
@@ -185,6 +181,16 @@ class TPWLModel:
             raise RuntimeError("tpwl method should be nn or weighting")
         return (A.reshape(lead + (n, n)), B.reshape(lead + (n, m)),
                 d.reshape(lead + (n,)))
+
+    def _blend(self, w, dt=None):
+        """(A, B, d) of the continuous dictionary blended by the weights w
+        (B, P), discretized when dt is given."""
+        A = torch.einsum("bp,pjk->bjk", w, self.A_c)
+        B = torch.einsum("bp,pjk->bjk", w, self.B_c)
+        d = w @ self.d_c
+        if dt is not None:
+            A, B, d = self.discretize_dynamics(A, B, d, dt)
+        return A, B, d
 
     def discretize_dynamics(self, A_c, B_c, d_c, dt):
         return disc.discretize_affine(A_c, B_c, d_c, dt,
@@ -255,21 +261,74 @@ def _apply(Mf, x, dtype):
     return Mf.to(dtype) @ x.to(dtype)
 
 
-def rollout_batch(model: TPWLModel, x0, u, dt):
-    """Batched rollout on the pre-discretized dictionary.
+def _batch_distances(model: TPWLModel, X):
+    """(B, P) weighted point distances of the states X (B, n_x) by the
+    squared-norm expansion |q|^2 - 2 q.q_i + |q_i|^2 (two matrix products),
+    the JAX package's 'matmul' form. Near-ties may resolve differently from
+    the direct differences of `point_distances`."""
+    q, v = x2qv(X)
 
-    x0: (B, n_x); u: (B, N, n_u). Returns (B, N+1, n_x). Every step selects
-    through the TPWL select kernel (plain version on the CPU)."""
-    if (model.pre_discretized_dt is None or model.tpwl_method != "nn"
-            or float(dt) != model.pre_discretized_dt):
-        raise ValueError("rollout_batch needs the pre-discretized nn "
-                         "dictionary at this dt (call pre_discretize)")
-    xs = [x0]
-    x = x0
+    def dist(a, pts):
+        d2 = ((a * a).sum(dim=1)[:, None] - 2.0 * a @ pts.T
+              + (pts * pts).sum(dim=1)[None])
+        return torch.sqrt(torch.clamp(d2, min=0.0))
+
+    return model.dist_w_q * dist(q, model.q) + model.dist_w_v * dist(
+        v, model.v)
+
+
+def rollout_batch(model: TPWLModel, x0, u, dt, select: str = "auto",
+                  interpret: bool = False):
+    """Batched rollout: x0 (B, n_x), u (B, N, n_u) -> (B, N+1, n_x).
+
+    select, as in the JAX package:
+    - 'exact': with the pre-discretized nn dictionary at this dt, the
+      nearest point by direct differences through the TPWL select kernel
+      (one launch a step); otherwise `get_jacobians(x, dt)` a step;
+    - 'pallas': the select kernel (it replaces the Pallas select); needs
+      the cache;
+    - 'matmul': distances by the squared-norm expansion
+      (`_batch_distances`, plain PyTorch), argmin, gather; needs the
+      cache. Near-ties may resolve differently from 'exact';
+    - 'weighting': exponential weights exp(-beta d_i / d_min) over the
+      dictionary (direct differences), the continuous matrices blended and
+      discretized a step; needs beta;
+    - 'auto': 'weighting' for a weighting-mode model, else 'matmul' for
+      B >= 32 with the cache, else 'exact'.
+    `interpret` runs the Pallas kernel in interpret mode on a TPU; it has
+    no meaning here and is ignored.
+    """
+    use_cache = (model.pre_discretized_dt is not None
+                 and model.tpwl_method == "nn"
+                 and float(dt) == model.pre_discretized_dt)
+    if select == "auto":
+        if model.tpwl_method == "weighting":
+            select = "weighting"
+        else:
+            select = "matmul" if (use_cache and x0.shape[0] >= 32) else "exact"
+    if select not in ("exact", "matmul", "pallas", "weighting"):
+        raise ValueError(f"unknown select {select!r}")
+    if select == "weighting" and model.beta is None:
+        raise ValueError("weighting mode needs beta "
+                         "(params['beta_weighting'])")
+    if select in ("matmul", "pallas") and not use_cache:
+        raise ValueError(f"select='{select}' needs the pre-discretized nn "
+                         "cache at this dt")
+    X = x0.to(model.q.dtype)
+    u = u.to(model.q.dtype)
+    xs = [X]
     for k in range(u.shape[1]):
-        _, A, B, d = model.select(x)
-        x = (A @ x[..., None] + B @ u[:, k, :, None])[..., 0] + d
-        xs.append(x)
+        if select == "weighting":
+            A, B, d = model._blend(model.calc_weighting_factors(X), dt)
+        elif select == "matmul":
+            i = torch.argmin(_batch_distances(model, X), dim=1)
+            A, B, d = model.A_d[i], model.B_d[i], model.d_d[i]
+        elif use_cache:
+            _, A, B, d = model.select(X)
+        else:
+            A, B, d = model.get_jacobians(X, dt=dt)
+        X = TPWLModel.update_dynamics(X, u[:, k], A, B, d)
+        xs.append(X)
     return torch.stack(xs, dim=1)
 
 

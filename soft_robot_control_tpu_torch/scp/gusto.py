@@ -19,7 +19,9 @@ replace it where the configuration allows:
   `GuSTOJit.solve_packed`, one packed result read a query;
 - `GuSTOJit.solve_batch_fused` for batches (scp/gusto_jit.py).
 
-Models with a nonlinear observer (the SSM adapter) wait for the SSM port.
+With a nonlinear observer (the SSM adapter) the output is z = C_map(x):
+the LOCP's objective takes the chart's Jacobians (H_d, c_d) along the
+trajectory, and state constraints are checked on C_map(x).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from soft_robot_control_tpu_torch.qp.admm import accept_tolerances
-from soft_robot_control_tpu_torch.utils.device import to_numpy
+from soft_robot_control_tpu_torch.utils.device import as_tensor, to_numpy
 
 # Defaults of the reference (gusto.py:12-22)
 DELTA0 = 1e4
@@ -69,10 +71,6 @@ class GuSTO:
     def __init__(self, model, N, dt, Qz, R, x0, u_init, x_init, z=None, u=None,
                  Qzf=None, zf=None, U=None, X=None, Xf=None, dU=None,
                  verbose=0, warm_start=True, **kwargs):
-        if getattr(model, "nonlinear_observer", False):
-            raise NotImplementedError(
-                "GuSTO with a nonlinear observer waits for the SSM port "
-                "(ROADMAP.md, modules to port, item 11)")
         self.model = model
         self.device = model.device
         self.n_x = x0.shape[0]
@@ -124,6 +122,8 @@ class GuSTO:
         self._device_tr_rho_qp = float(kwargs.pop("device_tr_rho_qp", 0.1))
         self._device_tr_qp_stages = int(kwargs.pop("device_tr_qp_stages", 4))
 
+        self.nonlinear_observer = bool(getattr(model, "nonlinear_observer",
+                                               False))
         locp_backend = kwargs.pop("locp_backend", "dense")
         if locp_backend == "condensed":
             # states eliminated exactly: N*nu + 1 variables
@@ -135,6 +135,7 @@ class GuSTO:
 
             self.locp = CondensedLOCPAdapter(
                 N, model.H, Qz, R, U=U, X=X, dU=dU, x_char=self.x_char,
+                nonlinear_observer=self.nonlinear_observer,
                 warm_start=warm_start, device=self.device, **kwargs)
         elif locp_backend == "stage":
             raise NotImplementedError(
@@ -146,6 +147,7 @@ class GuSTO:
             self.locp = LOCP(N, model.H, Qz, R, Qzf=Qzf, U=U, X=X, Xf=Xf,
                              dU=dU, verbose=(verbose == 2),
                              warm_start=warm_start, x_char=self.x_char,
+                             nonlinear_observer=self.nonlinear_observer,
                              device=self.device, **kwargs)
 
         self._jit_tr = None
@@ -153,6 +155,9 @@ class GuSTO:
             if locp_backend != "condensed":
                 raise NotImplementedError(
                     "device_tr requires locp_backend='condensed'")
+            if self.nonlinear_observer:
+                raise NotImplementedError(
+                    "device_tr supports linear observers (z = H x)")
             from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit
 
             self._jit_tr = GuSTOJit(
@@ -199,8 +204,7 @@ class GuSTO:
 
     # ------------------------------------------------------------------
     def _t(self, a):
-        return torch.as_tensor(np.array(to_numpy(a)), dtype=self.model.dtype,
-                               device=self.device)
+        return as_tensor(a, self.model.dtype, self.device)
 
     def _traj_dyn(self, x, u):
         """Discrete (A, B, d) along the trajectory, one batched call."""
@@ -209,6 +213,13 @@ class GuSTO:
 
     def _traj_cont(self, x, u):
         return self.model.get_continuous_dynamics(self._t(x), self._t(u))
+
+    def _traj_obs(self, x):
+        """The chart's (H_d, c_d) along the trajectory (nonlinear observer),
+        else (None, None)."""
+        if not self.nonlinear_observer:
+            return None, None
+        return self.model.get_observer_jacobians(self._t(x))
 
     def is_converged(self, x, u):
         dx = (1.0 / self.n_x) * np.sum(
@@ -222,11 +233,13 @@ class GuSTO:
             return max_diff, False
         return 0.0, True
 
-    def state_constraints_violated(self, x):
-        """Max 2-norm violation of X over the horizon."""
+    def state_constraints_violated(self, x, z_traj=None):
+        """Max 2-norm violation of X over the horizon; with a nonlinear
+        observer the constraint acts on z_traj = C_map(x)."""
         if self.X is None:
             return 0.0, True
-        viol = self.X.violation(torch.as_tensor(np.asarray(x, float)))
+        pts = z_traj if z_traj is not None else x
+        viol = self.X.violation(torch.as_tensor(np.array(pts, float)))
         max_violation = float(viol.max())
         return max_violation, max_violation <= self.params.epsilon
 
@@ -259,8 +272,12 @@ class GuSTO:
         Ad, Bd, dd = (a.to(sdt) for a in self.model.get_discrete_dynamics(
             x_traj[:-1].to(self.model.dtype), u_traj.to(self.model.dtype),
             self.dt))
+        Hd, cd = self._traj_obs(x_traj)
+        if Hd is not None:
+            Hd, cd = Hd.to(sdt)[None], cd.to(sdt)[None]
         params = CondensedParams(Ad=Ad[None], Bd=Bd[None], dd=dd[None],
-                                 x0=x0[None], z=z[None], u_des=u_des[None])
+                                 x0=x0[None], z=z[None], u_des=u_des[None],
+                                 Hd=Hd, cd=cd)
         P, q, A, l, ub, const, xfree, G = (a[0] for a in spec.assemble(params))
         sol = solve_qp_dense(P, q, A, l, ub, x0=w, y0=y,
                              **self.locp.solver_kwargs)
@@ -421,6 +438,7 @@ class GuSTO:
         self.x_k = np.asarray(x_init, float)
 
         A_d, B_d, d_d = self._traj_dyn(self.x_k[:-1], self.u_k)
+        H_d, c_d = self._traj_obs(self.x_k)
 
         new_solution = True
         Jstar_prev = np.inf
@@ -440,7 +458,7 @@ class GuSTO:
             delta_cur, omega_cur = delta, omega
 
             self.locp.update(A_d, B_d, d_d, np.asarray(x0, float), self.x_k,
-                             delta, omega, z=z, zf=zf, u=u,
+                             delta, omega, z=z, zf=zf, u=u, Hd=H_d, cd=c_d,
                              full=new_solution)
             new_solution = False
 
@@ -467,8 +485,10 @@ class GuSTO:
                         delta = p.beta_fail * delta
                     delta_prev, Jstar_prev, omega_prev = delta, Jstar, omega
 
+                    z_traj = (self._z_of(x_next) if self.nonlinear_observer
+                              else None)
                     max_violation, X_satisfied = \
-                        self.state_constraints_violated(x_next)
+                        self.state_constraints_violated(x_next, z_traj)
 
                     # modification 3: omega only grows
                     if not X_satisfied:
@@ -493,6 +513,7 @@ class GuSTO:
                 self.u_k = u_next.copy()
                 if p.max_gusto_iters >= 1:
                     A_d, B_d, d_d = self._traj_dyn(self.x_k[:-1], self.u_k)
+                    H_d, c_d = self._traj_obs(self.x_k)
 
         t_gusto = time.time() - t0
         if omega > p.omega_max:
@@ -508,6 +529,8 @@ class GuSTO:
         self.locp_solve_time = t_locp
 
     def _z_of(self, x):
+        if self.nonlinear_observer:
+            return to_numpy(self.model.dyn_sys.C_map(self._t(x))).astype(float)
         return np.asarray(x @ self._H.T)
 
     def get_solution(self):

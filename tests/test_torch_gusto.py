@@ -225,6 +225,9 @@ def test_unported_options_raise():
     _, tm, Qz, R, U, z, x0, u_init, x_init = _dubins(N, dt)
     with pytest.raises(NotImplementedError, match="item 13"):
         GuSTO(tm, N, dt, Qz, R, x0, u_init, x_init, locp_backend="stage")
+    # a nonlinear observer is ported (tests/test_torch_ssm.py), but not
+    # with the device loop, as in the JAX package
     tm.nonlinear_observer = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GuSTO(tm, N, dt, Qz, R, x0, u_init, x_init)
+    with pytest.raises(NotImplementedError, match="linear observers"):
+        GuSTO(tm, N, dt, Qz, R, x0, u_init, x_init,
+              locp_backend="condensed", device_tr=True)

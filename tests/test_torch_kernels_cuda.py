@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import (CAMPAIGN_PARAMS, campaign_dict,  # noqa: F401
-                           campaign_output_maps, cuda_device)
+from torch_helpers import (CAMPAIGN_PARAMS, SSM_ARTIFACTS,  # noqa: F401
+                           campaign_dict, campaign_output_maps, cuda_device,
+                           ssm_targets)
 
-from soft_robot_control_tpu_torch.control.batch_mpc import BatchMPC
+from soft_robot_control_tpu_torch.control import batch_mpc
+from soft_robot_control_tpu_torch.control.batch_mpc import (BatchMPC,
+                                                            BatchSSMMPC)
 from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
 from soft_robot_control_tpu_torch.models.interfaces import TPWLGuSTO
+from soft_robot_control_tpu_torch.models.ssm import from_mat
 from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
 from soft_robot_control_tpu_torch.ops import build
 from soft_robot_control_tpu_torch.ops.admm_batched import (
@@ -500,3 +504,146 @@ def test_gusto_fused_on_the_card_matches_the_cpu(cuda_device, formulation):
         r = getattr(ref, k)
         d = float((getattr(got, k).cpu() - r).abs().max())
         assert d <= 1e-6 * max(float(r.abs().max()), 1.0)
+
+
+def _ssm_mpc(name, formulation, dtype, dev):
+    """bench.py section 5's BatchSSMMPC (N=3, dt=0.02, N_replan=2, 50 ADMM
+    iterations, Qz on the tip's x and y, R = 1e-6 I) on an SSM artifact."""
+    model = from_mat(SSM_ARTIFACTS[name], None, discrete=False,
+                     discr_method="be", device=dev)
+    Qz = np.zeros((6, 6))
+    Qz[0, 0] = Qz[1, 1] = 100.0
+    return BatchSSMMPC(model, Qz, 1e-6 * np.eye(model.input_dim), N=3,
+                       dt=0.02, N_replan=2, qp_iters=50,
+                       formulation=formulation, dtype=dtype, device=dev)
+
+
+@pytest.fixture(scope="module")
+def ssm_qps():
+    """The batched ADMM launch of each BatchSSMMPC window, f64 at B=1024,
+    captured in the second window of build_fused (the plans then differ
+    from loop to loop), keyed by (artifact, formulation)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    out = {}
+    real = batch_mpc.admm_batched
+    for name in ("trunk", "diamond"):
+        for formulation in ("condensed", "sparse"):
+            mpc = _ssm_mpc(name, formulation, torch.float64, "cuda")
+            seen = []
+
+            def record(*a):
+                seen.append([t.clone() for t in a[:8]] + [a[8]])
+                return real(*a)
+
+            batch_mpc.admm_batched = record
+            try:
+                mpc.build_fused(2)(np.zeros((1024, 6)),
+                                   ssm_targets(1024, 2))
+            finally:
+                batch_mpc.admm_batched = real
+            assert len(seen) == 2
+            out[name, formulation] = seen[1]
+    return out
+
+
+def _f32_error_ratio(args, iters):
+    """The kernel's f32 result against the plain version in f64 on the
+    same f32 inputs, over the plain f32 result's error against the same."""
+    exact = admm_batched_plain(*[t.double() for t in args], iters)
+    errs = []
+    for r in (admm_batched(*args, iters), admm_batched_plain(*args, iters)):
+        errs.append(max(float((a.double() - b).abs().max())
+                        for a, b in zip(r, exact)))
+    return errs[0], errs[1]
+
+
+@pytest.mark.parametrize("name,formulation,n,m", [
+    ("trunk", "condensed", 24, 1), ("diamond", "condensed", 12, 1),
+    ("trunk", "sparse", 48, 24), ("diamond", "sparse", 36, 24)])
+@pytest.mark.parametrize("B", [1, 3, 1024])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_admm_kernel_on_ssm_locps(ssm_qps, name, formulation, n, m, B,
+                                  dtype):
+    """Kernel 1 on the LOCPs that BatchSSMMPC assembles: the condensed
+    ones (one vacuous row with bounds of 1e30; in f32 the register form,
+    padded to n=24, m=48) and the sparse ones (the shared form; the init
+    and dynamics rows with the 1e3 rho boost), against the plain version.
+    f64: to 1e-9 of the solution's scale. f32: the kernel's error against
+    the plain version in f64 on the same inputs within 2x the plain f32
+    version's, and the kernel within the larger of 1e-4 of the scale and
+    twice that plain error of the plain f32 version (the Diamond's LOCPs,
+    K^-1 entries to 1.8e5 with R = 1e-6 I, put the plain version's own
+    f32 error near 1e-4 of the scale and above it; chip_smoke.py states
+    the measurements)."""
+    qp = ssm_qps[name, formulation]
+    ka, iters = qp[:8], qp[8]
+    args = [t.to(dtype) for t in ka]
+    args = [t[:B] if t.dim() > 1 else t for t in args]
+    assert tuple(args[1].shape) == (B, m, n) and iters == 50
+    assert batched_form(n, m, args[0].element_size()) == (
+        "registers" if dtype == torch.float32 and m == 1 else "shared")
+    launches = admm_batched.launches
+    got = admm_batched(*args, iters)
+    ref = admm_batched_plain(*args, iters)
+    torch.cuda.synchronize()
+    assert admm_batched.launches == launches + 1
+    scale = max(max(float(b.abs().max()) for b in ref), 1.0)
+    tol = 1e-9 * scale
+    if dtype == torch.float32:
+        e_k, e_p = _f32_error_ratio(args, iters)
+        assert e_k <= 2.0 * e_p
+        tol = max(1e-4 * scale, 2.0 * e_p)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n", [24, 12])
+@pytest.mark.parametrize("B", [1, 3, 1024])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_admm_kernel_one_row_with_infinite_bounds(cuda_device, n, B, dtype,
+                                                  tol):
+    """Random QPs of one row with l = -inf and u = +inf (the padded rows of
+    the register form must stay inert, and the clip must pass the infinite
+    bounds through)."""
+    args = _qps(B, n, 1, seed=n + B)
+    args[3][:] = -np.inf
+    args[4][:] = np.inf
+    args = [t.to(cuda_device, dtype) for t in args]
+    got = admm_batched(*args, 50)
+    ref = admm_batched_plain(*args, 50)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype, tol)
+
+
+@pytest.mark.parametrize("name", ["trunk", "diamond"])
+@pytest.mark.parametrize("formulation", ["condensed", "sparse"])
+def test_ssm_mpc_on_the_card_matches_the_cpu(cuda_device, name,
+                                             formulation):
+    """build_fused at B=64 for 3 windows: one launch of kernel 1 a window
+    and none of the others; the f64 loop on the card agrees with the f64
+    loop on the CPU to 1e-9 of the logs' scale (outputs about z_ref), and
+    the f32 loop's logs are finite."""
+    zt, x0 = ssm_targets(64, 3), np.zeros((64, 6))
+    logs = {}
+    for dev, dt in ((cuda_device, torch.float64), ("cpu", torch.float64),
+                    (cuda_device, torch.float32)):
+        mpc = _ssm_mpc(name, formulation, dt, dev)
+        admm_batched.launches = admm_cluster.launches = 0
+        admm_stream.launches = admm_single.launches = 0
+        tpwl_select.launches = 0
+        out = mpc.build_fused(3)(x0, zt)
+        counts = (admm_batched.launches, admm_cluster.launches,
+                  admm_stream.launches, admm_single.launches,
+                  tpwl_select.launches)
+        assert counts == ((3 if dev != "cpu" else 0), 0, 0, 0, 0)
+        z_ref = mpc.model.z_ref.double().cpu().numpy()
+        logs[str(dev), dt] = (out["z"].double().cpu().numpy() - z_ref,
+                              out["u"].double().cpu().numpy())
+    for got, ref in zip(logs[str(cuda_device), torch.float64],
+                        logs["cpu", torch.float64]):
+        assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
+    assert all(np.isfinite(a).all()
+               for a in logs[str(cuda_device), torch.float32])

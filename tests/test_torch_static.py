@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import CAMPAIGN, REPO
+from torch_helpers import CAMPAIGN, REPO, SSM_ARTIFACTS
 
 FORBIDDEN = {"jax", "jaxlib", "soft_robot_control_tpu"}
 
@@ -51,7 +51,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/models/linear.py",
             "soft_robot_control_tpu_torch/models/dubins.py",
             "soft_robot_control_tpu_torch/models/interfaces.py",
-            "soft_robot_control_tpu_torch/core/types.py"} <= names
+            "soft_robot_control_tpu_torch/core/types.py",
+            "soft_robot_control_tpu_torch/ops/monomials.py",
+            "soft_robot_control_tpu_torch/models/ssm.py",
+            "soft_robot_control_tpu_torch/estimators/ssm_observer.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
     assert not {f: r for f, r in bad.items() if r}
@@ -74,6 +77,8 @@ def _entry_points():
     from soft_robot_control_tpu_torch.scp.locp_condensed import (
         CondensedLOCPAdapter, CondensedSpec)
     from soft_robot_control_tpu_torch.tasks.demo import make_demo_tpwl
+    from soft_robot_control_tpu_torch.control.batch_mpc import BatchSSMMPC
+    from soft_robot_control_tpu_torch.models.ssm import from_mat
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
@@ -103,6 +108,10 @@ def _entry_points():
         "LinearMPCService": lambda: LinearMPCService(
             LTI(), 2, 0.1, QuadraticCost(np.eye(2), np.eye(1)),
             Target(z=np.zeros(2)), locp_backend="condensed"),
+        "from_mat": lambda: from_mat(SSM_ARTIFACTS["trunk"], None),
+        "BatchSSMMPC": lambda: BatchSSMMPC(
+            from_mat(SSM_ARTIFACTS["trunk"], None, device="cpu"),
+            np.eye(6), np.eye(8), N=3, dt=0.02),
     }
 
 
@@ -112,9 +121,31 @@ def _entry_points():
                                   "CondensedSpec_trust_region",
                                   "CondensedLOCPAdapter", "DubinsCar",
                                   "make_demo_tpwl", "LinearROM",
-                                  "LinearMPCService"])
+                                  "LinearMPCService", "from_mat",
+                                  "BatchSSMMPC"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+def _reexported_names(init_path):
+    """The names an __init__.py binds through `from ... import` lines."""
+    tree = ast.parse(open(init_path).read(), filename=init_path)
+    return sorted(a.asname or a.name for node in tree.body
+                  if isinstance(node, ast.ImportFrom) for a in node.names)
+
+
+@pytest.mark.parametrize("sub", ["scp", "qp", "core"])
+def test_subpackages_reexport_the_jax_names(sub):
+    """Each subpackage's re-exports are the JAX subpackage's: for example
+    `from soft_robot_control_tpu_torch.scp import GuSTO` works."""
+    import importlib
+
+    jax_pkg = importlib.import_module(f"soft_robot_control_tpu.{sub}")
+    port = importlib.import_module(f"soft_robot_control_tpu_torch.{sub}")
+    names = _reexported_names(jax_pkg.__file__)
+    assert names and all(hasattr(jax_pkg, n) for n in names)
+    assert [n for n in names if not hasattr(port, n)] == []
+    assert _reexported_names(port.__file__) == names

@@ -19,6 +19,12 @@ CAMPAIGN = os.path.join(REPO, "examples", "diamond_tet",
                         "tpwl_model_snapshots.pkl")
 CAMPAIGN_PARAMS = {"dist_weights": {"q": 10.0, "v": 1.0}}
 DICT_KEYS = ("q", "v", "u", "A_c", "B_c", "d_c", "A_d", "B_d", "d_d")
+# the committed SSM artifacts: bench.py's trunk model and the Diamond's
+SSM_ARTIFACTS = {
+    "trunk": os.path.join(REPO, "examples", "trunk_tet",
+                          "trunk_SSM_model.mat"),
+    "diamond": os.path.join(REPO, "examples", "diamond_tet",
+                            "diamond_SSM_model.mat")}
 
 
 def campaign_output_maps():
@@ -48,3 +54,22 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def ssm_targets(B, n_win, N=3, N_replan=2, dt=0.02, seed=7):
+    """bench.py section 5's targets: a 2 mm circle through the start in
+    the tip's (x, y), one phase a loop from default_rng(seed), in shifted
+    coordinates, windowed (B, n_win, N+1, 6)."""
+    from soft_robot_control_tpu_torch.control.batch_mpc import window_targets
+
+    T = n_win * N_replan + N + 1
+    ts = dt * np.arange(T)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(B):
+        ph = rng.uniform(0, 2 * np.pi)
+        zz = np.zeros((T, 6))
+        zz[:, 0] = 2.0 * np.cos(2 * np.pi * ts / 6.0 + ph) - 2.0 * np.cos(ph)
+        zz[:, 1] = 2.0 * np.sin(2 * np.pi * ts / 6.0 + ph) - 2.0 * np.sin(ph)
+        out.append(window_targets(zz, n_win, N_replan, N))
+    return np.stack(out)
