@@ -85,6 +85,29 @@ the tolerances stated below.
    its bound, a profiler pass. Then the Diamond SSM artifact at B=64 in
    both formulations (n=12, m=1 and n=36, m=24): the same launch counts,
    kernel check and agreement with the CPU, untimed.
+15. the stage LOCP: bench.py section 4b (bench.py:301-332), StageLOCP
+   at N=200 on the campaign dictionary's first point, 100 ADMM
+   iterations, kkt_solver 'cr' and 'scan': no kernel of the port (the JAX
+   package computes it in XLA); ms a solve, device operations a solve and
+   the device's busy share, f32 and f64 card runs against the f64 CPU run,
+   'cr' against 'scan';
+16. GuSTO's stage backend through run_gusto_standalone at N=200: the
+   Dubins car (tests/test_locp_stages.py:228-252's settings) and the
+   campaign dictionary through TPWLGuSTO; LOCP solves counted, ms an SCP
+   iteration; kernel 2 counted and held to its plain version on the first
+   call of each shape and table, and timed at the linearization's 200
+   states; f32 and f64 on the card, f64 on the CPU (the campaign's loop
+   there only its first LOCP: the whole loop takes minutes);
+17. ROMPC at examples/diamond_baselines_campaign.py:130-137's settings on
+   the campaign's linear ROM, the LinearROM as the plant, 18 ticks (4
+   replans) after a 2-tick delay: kernel 1 (condensed LOCP, B=1, n=80, one
+   placeholder row) 4 launches a solve, held to its plain version on the
+   first QP and timed; host-adapter fallbacks counted; ms a replan; f32
+   and f64 on the card against f64 on the CPU;
+18. Koopman MPC at the campaign's settings (tasks/recipes.py:417-435),
+   the model trained by the port's train_edmd on a seeded rollout of the
+   campaign dictionary, the dictionary as the plant: kernel 1 (B=1, n=40,
+   m=152) 6 launches a solve, the same checks and reports as 17.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The last three lines of standard output are the per-kernel JSON
@@ -109,16 +132,22 @@ sys.path.insert(0, HERE)
 from soft_robot_control_tpu_torch.control import batch_mpc  # noqa: E402
 from soft_robot_control_tpu_torch.control.batch_mpc import (  # noqa: E402
     BatchMPC, BatchSSMMPC, equilibrate_qp, window_targets)
+from soft_robot_control_tpu_torch.control.koopman import (  # noqa: E402
+    KoopmanMPC)
 from soft_robot_control_tpu_torch.control.linear_mpc import (  # noqa: E402
     LinearMPCService)
+from soft_robot_control_tpu_torch.control.rompc import ROMPC  # noqa: E402
 from soft_robot_control_tpu_torch.control.service import (  # noqa: E402
     GuSTOService)
 from soft_robot_control_tpu_torch.core.constraints import (  # noqa: E402
     HyperRectangle)
 from soft_robot_control_tpu_torch.core.types import (  # noqa: E402
     QuadraticCost, Target)
+from soft_robot_control_tpu_torch.models.dubins import DubinsCar  # noqa: E402,E501
 from soft_robot_control_tpu_torch.models.interfaces import (  # noqa: E402
     TPWLGuSTO)
+from soft_robot_control_tpu_torch.models.koopman import (  # noqa: E402
+    koopman_model_from_arrays, train_edmd)
 from soft_robot_control_tpu_torch.models.linear import (  # noqa: E402
     LinearROM, tpwl_to_linear_rom)
 from soft_robot_control_tpu_torch.models.ssm import from_mat  # noqa: E402
@@ -139,8 +168,13 @@ from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp_condensed import (  # noqa: E402
     CondensedParams)
+from soft_robot_control_tpu_torch.scp.locp_stages import (  # noqa: E402
+    StageLOCP, StageLOCPAdapter)
+from soft_robot_control_tpu_torch.scp.standalone import (  # noqa: E402
+    run_gusto_standalone)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
     linearModel)
+from soft_robot_control_tpu_torch.utils.device import to_numpy  # noqa: E402
 
 ARTIFACT = os.path.join(HERE, "examples", "diamond_tet",
                         "tpwl_model_snapshots.pkl")
@@ -228,6 +262,31 @@ SSM_F32_TOL = {"condensed": 2e-2, "sparse": 1.5e-1}
 # version's own f32 error at 0.9-1.4x the raw limit, so no other summation
 # order can meet the raw limit there
 SSM_F32_ROUNDING_RATIO = 2.0
+# The stage LOCP (phase 15): bench.py section 4b's settings
+STAGE_N, STAGE_ITERS, STAGE_RUNS = 200, 100, 3
+# f32 against f64 there, w over its scale: cyclic reduction's explicit
+# block inverses lose what the 1e3 equality rho amplifies, and so do the
+# JAX package's in f32 (tests/test_torch_locp_stages.py holds the port's
+# f32 error within 2x of JAX's). Measured on an H100 80GB HBM3 after 100
+# iterations: 'cr' 0.1346, 'scan' 0.0079; 'cr' against 'scan' in f64 on
+# the CPU 7.3e-10
+STAGE_F32_TOL = {"cr": 0.5, "scan": 0.05}
+STAGE_CR_SCAN_F64_TOL = 1e-8
+# GuSTO's stage backend on the campaign dictionary (phase 16): ADMM
+# iterations an LOCP. The stage adapter accepts a solve at absolute
+# residuals pri < 1e-4, dua < 1e-3 (the JAX package's gate); at 6000 the
+# f64 loop takes 4 accepted solves of 5 at N=200 (measured on an H100
+# 80GB HBM3); the default 400 and 2000 missed it in a CPU rehearsal
+STAGE_GUSTO_ADMM_ITERS = 6000
+# the Dubins car's f32 plan against the f64 CPU run where their solves
+# match (measured on an H100 80GB HBM3: 5.9e-5)
+STAGE_GUSTO_F32_TOL = 1e-3
+# ROMPC and Koopman MPC (phases 17-18): the campaign's horizons, the delay
+# cut from 1 s to 2 ticks, 18 ticks (4 replans); the EDMD data of 60 held
+# inputs (the campaign's --koopman-samples)
+BASELINE_N_ROMPC, KOOPMAN_N, KOOPMAN_SAMPLES = 20, 10, 60
+BASELINE_DELAY, BASELINE_TICKS = 0.02, 18
+BASELINE_F32_TOL = 1e-3
 
 
 def check(ok, msg):
@@ -593,32 +652,10 @@ def phase_select(model64, model, x64, card):
             out[tag] = hold_select(tag, (x,) + dic, k)
     dic = (model.q, model.v, model.A_d, model.B_d, model.d_d,
            model.dist_w_q, model.dist_w_v)
-    P, r = model.q.shape
-    n, mu = model.B_d.shape[1:]
-    row = n * n + n * mu + n
-    xs = x64.float()
     for name, B, k in (("plan", B_plan, 0), ("tick", B_tick, B_MAIN),
                        ("index_only", B_plan, B_plan)):
-        xb = xs[:B]
-        n_rows = int(torch.unique(tpwl_select(xb, *dic)[0][k:]).numel())
-        ms = cuda_ms(lambda: tpwl_select(xb, *dic, index_only=k), 50)
-        clk = clocks()
-        plain_ms = cuda_ms(lambda: tpwl_select_plain(xb, *dic, k), 5)
-        # states and dictionary coordinates read once, the rows that the
-        # states k.. select read once, their rows and every index written
-        # once; per state and point 3 operations a coordinate, 2 roots, 3
-        # more
-        nbytes = 4 * (B * 2 * r + P * 2 * r + n_rows * row
-                      + (B - k) * row) + 8 * B
-        flops = B * P * (6 * r + 5)
-        bound_ms, bound_by = bound(nbytes, flops)
-        out[name] = dict(B=B, index_only=k, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                         flops=flops, distinct_rows=n_rows, clocks=clk)
-        print(f"[tpwl_select] {name} launch, f32 B={B} index_only={k} "
-              f"P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}) [{card}; after it SM clock, max, "
-              f"power, temperature: {out[name]['clocks']}]")
+        out[name] = select_row(f"tpwl_select {name} launch",
+                               (x64[:B].float(),) + dic, k, card)
     return out
 
 
@@ -1306,6 +1343,578 @@ def phase_ssm(tag, name, formulation, B, card, dev, timed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-18: the long-horizon stage LOCP and GuSTO's stage backend, and
+# the LTI baselines ROMPC and Koopman MPC
+
+
+@contextlib.contextmanager
+def counting(cls, name):
+    """Within the block, each call of the method cls.name appends (its
+    result, seconds to the device's end)."""
+    real = getattr(cls, name)
+    calls = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        r = real(*a, **k)
+        torch.cuda.synchronize()
+        calls.append((r, time.perf_counter() - t0))
+        return r
+
+    setattr(cls, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, real)
+
+
+def ops_per_call(fn_of, n_lo, n_hi, n):
+    """Device operations and device ms of fn_of(n) from profiler passes at
+    n_lo and n_hi repetitions (a + b n is exact for a loop of fixed
+    work)."""
+    lo, hi = (profile_quiet(fn_of(k)) for k in (n_lo, n_hi))
+    per = [(h - l) / (n_hi - n_lo) for l, h in zip(lo, hi)]
+    return [l + (n - n_lo) * p for l, p in zip(lo, per)]
+
+
+def profile_quiet(fn):
+    """(device operations, device ms) of one call of fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def host_ms(fn, runs):
+    """Host-clock ms of fn() synchronized, `runs` times after one
+    warm-up."""
+    fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_stage_locp(model64, card, dev):
+    """bench.py section 4b (bench.py:301-332): the campaign dictionary's
+    first discrete point repeated over N=STAGE_N, H of the model, Qz=100 I,
+    R=1e-3 I, cables in [0, 1500] mN, z = 0.05 N(0, 1) (seed 3), x0 = 0,
+    STAGE_ITERS ADMM iterations, kkt_solver 'cr' and 'scan'. No kernel of
+    the port runs here (the JAX package computes this in XLA): ms a solve,
+    device operations a solve, the device's busy share; f32 and f64 card
+    runs against the f64 CPU run, 'cr' against 'scan'."""
+    nz, m_in, nx = model64.H.shape[0], model64.input_dim, model64.state_dim
+    rng = np.random.default_rng(3)
+    z = 0.05 * rng.normal(size=(STAGE_N + 1, nz))
+    first = lambda a: a[:1].double().cpu().numpy().repeat(STAGE_N, axis=0)
+    data = (first(model64.A_d), first(model64.B_d), first(model64.d_d),
+            np.zeros(nx), z)
+    H = model64.H.cpu().numpy()
+    U = HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in))
+
+    def solver(kkt, dtype, device, iters=STAGE_ITERS):
+        st = StageLOCP(STAGE_N, H, 100.0 * np.eye(nz), 1e-3 * np.eye(m_in),
+                       U=U, kkt_solver=kkt, dtype=dtype, device=device)
+        args = [torch.as_tensor(a, dtype=dtype, device=st.device)
+                for a in data]
+        return st, lambda: st.solve(*args, iters=iters)[0]
+
+    out, ws = {}, {}
+    for kkt in ("cr", "scan"):
+        st, fn = solver(kkt, torch.float32, dev)
+        reset_counts()
+        w = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(all(v == 0 for v in counts.values()),
+              f"stage {kkt}: kernel launches {counts}")
+        runs = host_ms(fn, STAGE_RUNS)
+        ms = float(np.median(runs))
+        n_ops, dev_ms = ops_per_call(
+            lambda k: solver(kkt, torch.float32, dev, k)[1], 2, 12,
+            STAGE_ITERS)
+        clk = clocks()
+        ref = solver(kkt, torch.float64, "cpu")[1]().numpy()
+        w64 = solver(kkt, torch.float64, dev)[1]().cpu().numpy()
+        check(np.isfinite(w.cpu().numpy()).all(), f"stage {kkt}: non-finite")
+        d64 = rel_diff(w64, ref)
+        d32 = rel_diff(w.cpu().numpy(), ref)
+        print(f"[stage {kkt}] N={STAGE_N}, n_x={nx}, n_u={m_in}, n_z={nz}, "
+              f"{STAGE_ITERS} ADMM iterations, f32: {ms:.2f} ms a solve "
+              f"({1e3 / ms:.2f} solves/s; host clock, median of "
+              f"{STAGE_RUNS}: {', '.join(f'{t:.2f}' for t in runs)}), "
+              f"{n_ops:.0f} device operations a solve, device busy "
+              f"{dev_ms:.2f} ms (share {dev_ms / ms:.3f}) [{card}; after it "
+              f"SM clock, max, power, temperature: {clk}]")
+        print(f"[stage {kkt}] card vs f64 CPU, w over its scale: f64 "
+              f"{d64:.3e} (tol {F64_CPU_AGREE_TOL}), f32 {d32:.3e} (tol "
+              f"{STAGE_F32_TOL[kkt]})")
+        check(d64 <= F64_CPU_AGREE_TOL, f"stage {kkt} f64: {d64}")
+        check(d32 <= STAGE_F32_TOL[kkt], f"stage {kkt} f32: {d32}")
+        ws[kkt] = (w.cpu().numpy(), ref)
+        out[kkt] = dict(ms=ms, runs_ms=runs, solves_per_s=1e3 / ms,
+                        device_ops=n_ops, device_ms=dev_ms,
+                        device_busy_share=dev_ms / ms, launches=counts,
+                        cpu_rel_diff_f64=d64, cpu_rel_diff_f32=d32,
+                        clocks=clk)
+    d_cpu = rel_diff(ws["cr"][1], ws["scan"][1])
+    d_card = rel_diff(ws["cr"][0], ws["scan"][0])
+    print(f"[stage] 'cr' against 'scan', w over its scale: f64 CPU "
+          f"{d_cpu:.3e} (tol {STAGE_CR_SCAN_F64_TOL}), f32 card {d_card:.3e}"
+          f" (tol {STAGE_F32_TOL['cr']})")
+    check(d_cpu <= STAGE_CR_SCAN_F64_TOL, f"stage cr vs scan f64: {d_cpu}")
+    check(d_card <= STAGE_F32_TOL["cr"], f"stage cr vs scan f32: {d_card}")
+    out.update(cr_vs_scan_f64_cpu=d_cpu, cr_vs_scan_f32_card=d_card)
+    return out
+
+
+def stage_gusto_run(tag, make, min_select=0):
+    """run_gusto_standalone through make() with its LOCP solves counted
+    and timed: (plan, solves [(accepted, s)], wall s, launches). On the
+    card kernel 2 must have launched at least min_select times, and no
+    other kernel."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with counting(StageLOCPAdapter, "solve") as calls:
+        xopt, uopt, zopt, _, g = make()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    solves = [(bool(r[1]), s) for r, s in calls]
+    plan = [np.asarray(xopt, float), np.asarray(uopt, float),
+            np.array([len(solves)]), np.array([a for a, _ in solves])]
+    print(f"[{tag}] {len(solves)} LOCP solves (accepted: "
+          f"{[a for a, _ in solves]}), {wall:.2f} s in all, "
+          f"{1e3 * np.median([s for _, s in solves]):.1f} ms an SCP "
+          f"iteration (median LOCP solve); launches {counts}")
+    check(all(np.isfinite(a).all() for a in plan[:2]), f"{tag}: non-finite")
+    check(counts["tpwl_select"] >= min_select
+          and all(counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+          f"{tag}: launches {counts}")
+    return plan, solves, wall, counts
+
+
+def phase_stage_gusto(model64, model, card, dev):
+    """GuSTO(locp_backend='stage') through run_gusto_standalone at N=200:
+    the Dubins car (tests/test_locp_stages.py:228-252's settings: dt=0.05,
+    Qz = diag(1, 1, 0), R = 0.05 I, speed in [0, 1], a line to (4, 2),
+    2000 ADMM iterations an LOCP) and the campaign TPWL dictionary
+    (TPWLGuSTO, dt=0.01, Qz = 100 I, R = 1e-3 I, cables in [0, 1500] mN,
+    a feasible output target, STAGE_GUSTO_ADMM_ITERS iterations an LOCP).
+    The Dubins loop in f32 and f64 on the card and f64 on the CPU; the
+    campaign's in f32 and f64 on the card, its first LOCP also solved on
+    the CPU in f64; kernel 2 counted and held to its plain version on the
+    first call of each shape and table."""
+    out = {}
+    N, dt = STAGE_N, 0.05
+    t = dt * np.arange(N + 1)
+    z = np.stack([4.0 * t / t[-1], 2.0 * t / t[-1], 0.0 * t], axis=1)
+
+    def dubins(dtype, device):
+        return lambda: run_gusto_standalone(
+            DubinsCar(dtype=dtype, device=device), N, dt,
+            np.diag([1.0, 1.0, 0.0]), 0.05 * np.eye(2), np.zeros(3), z=z,
+            U=HyperRectangle([1.0, 1.0], [0.0, -1.0]), locp_backend="stage",
+            iters=2000, max_gusto_iters=10, dtype=dtype)
+
+    runs = {}
+    for name, dtype, device in (("f32", torch.float32, dev),
+                                ("f64", torch.float64, dev),
+                                ("cpu", torch.float64, "cpu")):
+        runs[name] = stage_gusto_run(f"gusto stage dubins {name}",
+                                     dubins(dtype, device))
+    out["dubins"] = stage_gusto_compare("gusto stage dubins", runs, card)
+
+    z_rel = (feasible_outputs(model64, 1, N + 1)[0]
+             - model64.z_ref.cpu().numpy())
+    nz, m_in = model64.H.shape[0], model64.input_dim
+    Qz, R = 100.0 * np.eye(nz), 1e-3 * np.eye(m_in)
+    U = HyperRectangle(1500.0 * np.ones(m_in), np.zeros(m_in))
+
+    def diamond(mdl, dtype):
+        return lambda: run_gusto_standalone(
+            TPWLGuSTO(mdl), N, 0.01, Qz, R, np.zeros(mdl.state_dim),
+            z=z_rel, U=U, locp_backend="stage",
+            iters=STAGE_GUSTO_ADMM_ITERS, dtype=dtype)
+
+    # kernel 2: the rollout's N steps and the first linearization, then
+    # the accuracy ratio's two and a relinearization as the loop goes
+    runs = {}
+    for name, mdl, dtype in (("f32", model, torch.float32),
+                             ("f64", model64, torch.float64)):
+        with recording(select_ops, "_launch", clone=1) as sel, \
+                first_locp() as first:
+            runs[name] = stage_gusto_run(f"gusto stage diamond {name}",
+                                         diamond(mdl, dtype), N + 1)
+        out[f"select {name}"] = hold_path_selects(
+            f"gusto stage diamond {name}", mdl, sel)
+        if name == "f32":
+            lin = next(a for a in sel if a[0].shape[0] == N
+                       and a[3] is mdl.A_d)
+            out["select_row"] = select_row("gusto stage diamond", lin[:8],
+                                           lin[8], card)
+    # the f64 run's first LOCP solved again by the adapter on the CPU (the
+    # whole loop there takes minutes: 5 solves of 6000 iterations)
+    t0 = time.perf_counter()
+    cpu = StageLOCPAdapter(N, model64.H.cpu().numpy(), Qz, R, U=U,
+                           iters=STAGE_GUSTO_ADMM_ITERS, dtype=torch.float64,
+                           device="cpu")
+    cpu.update(*first["args"], **first["kwargs"])
+    J, ok, _ = cpu.solve()
+    ref = cpu.get_solution()[:2]
+    d = max(rel_diff(a, b) for a, b in zip(first["solution"], ref))
+    rel_J = abs(J - first["J"]) / max(abs(J), 1.0)
+    print(f"[gusto stage diamond] first LOCP, f64 card vs f64 CPU "
+          f"({time.perf_counter() - t0:.1f} s): accepted {first['ok']} / "
+          f"{ok}, objective rel difference {rel_J:.3e}, x and u rel "
+          f"difference {d:.3e} (tol {F64_CPU_AGREE_TOL})")
+    check(ok == first["ok"] and d <= F64_CPU_AGREE_TOL
+          and rel_J <= F64_CPU_AGREE_TOL,
+          f"gusto stage diamond first LOCP: card vs CPU {d}, {rel_J}")
+    out["diamond"] = {}
+    for name in ("f32", "f64"):
+        _, solves, wall, counts = runs[name]
+        out["diamond"][name] = dict(
+            solves=len(solves), accepted=[a for a, _ in solves],
+            ms_per_scp_iteration=1e3 * float(np.median(
+                [s for _, s in solves])),
+            locp_ms=[1e3 * s for _, s in solves], wall_s=wall,
+            launches=counts)
+    out["diamond"]["first_locp_cpu_rel_diff"] = d
+    out["launches"] = runs["f32"][3]
+    out["launches_f64"] = runs["f64"][3]
+    return out
+
+
+@contextlib.contextmanager
+def first_locp():
+    """Within the block, the first update of a StageLOCPAdapter (its
+    arguments on the CPU) and the first solve's (J, accepted, x, u)."""
+    from soft_robot_control_tpu_torch.scp.locp_stages import (
+        StageLOCPAdapter)
+
+    rec = {}
+    update, solve = StageLOCPAdapter.update, StageLOCPAdapter.solve
+    cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
+
+    def rec_update(self, *a, **k):
+        if "args" not in rec:
+            rec["args"] = [cpu(v) for v in a]
+            rec["kwargs"] = {key: cpu(v) for key, v in k.items()}
+        return update(self, *a, **k)
+
+    def rec_solve(self):
+        r = solve(self)
+        if "J" not in rec:
+            rec.update(J=r[0], ok=r[1], solution=self.get_solution()[:2])
+        return r
+
+    StageLOCPAdapter.update, StageLOCPAdapter.solve = rec_update, rec_solve
+    try:
+        yield rec
+    finally:
+        StageLOCPAdapter.update, StageLOCPAdapter.solve = update, solve
+
+
+def stage_gusto_compare(tag, runs, card):
+    """The f64 card run against the f64 CPU run (identical solves and
+    acceptance, plans within F64_CPU_AGREE_TOL), the f32 run's difference
+    (held to STAGE_GUSTO_F32_TOL where its solves match); ms an SCP
+    iteration of each card run."""
+    ref = runs["cpu"][0]
+    rec = {}
+    for name in ("f64", "f32"):
+        plan, solves, wall, counts = runs[name]
+        rec[name] = dict(
+            solves=len(solves), accepted=[a for a, _ in solves],
+            ms_per_scp_iteration=1e3 * float(np.median([s for _, s in
+                                                        solves])),
+            locp_ms=[1e3 * s for _, s in solves], wall_s=wall,
+            launches=counts)
+        same = (np.array_equal(plan[2], ref[2])
+                and np.array_equal(plan[3], ref[3]))
+        d = max(rel_diff(plan[0], ref[0]), rel_diff(plan[1], ref[1]))
+        rec[name].update(same_solves_as_cpu=bool(same), cpu_rel_diff=d)
+        print(f"[{tag}] {name} card vs f64 CPU: solves and acceptance "
+              f"{'identical' if same else 'differ'}, x and u rel difference "
+              f"{d:.3e}; {rec[name]['ms_per_scp_iteration']:.1f} ms an SCP "
+              f"iteration [{card}]")
+        if name == "f64":
+            check(same and d <= F64_CPU_AGREE_TOL,
+                  f"{tag} f64: solves {plan[3]} / {ref[3]}, difference {d}")
+        elif same:
+            check(d <= STAGE_GUSTO_F32_TOL, f"{tag} f32: difference {d}")
+    return rec
+
+
+def select_row(tag, args, k, card):
+    """Kernel 2 timed on the arguments (x, q, v, A, B, d, w_q, w_v) of a
+    launch with index_only=k, beside its plain version and its bound:
+    states and dictionary coordinates read once, the rows that the states
+    k.. select read once, their rows and every index written once; per
+    state and point 3 operations a coordinate, 2 roots, 3 more."""
+    x, q = args[0], args[1]
+    B, (P, r) = x.shape[0], q.shape
+    n, mu = args[4].shape[1:]
+    row = n * n + n * mu + n
+    n_rows = int(torch.unique(tpwl_select(*args)[0][k:]).numel())
+    ms = cuda_ms(lambda: tpwl_select(*args, index_only=k), 50)
+    clk = clocks()
+    plain_ms = cuda_ms(lambda: tpwl_select_plain(*args, k), 5)
+    nbytes = (x.element_size() * (B * 2 * r + P * 2 * r + n_rows * row
+                                  + (B - k) * row) + 8 * B)
+    flops = B * P * (6 * r + 5)
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[{tag}] tpwl_select {str(x.dtype)[6:]} B={B} index_only={k} "
+          f"P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}) [{card}; after it SM clock, max, "
+          f"power, temperature: {clk}]")
+    return dict(B=B, index_only=k, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops, distinct_rows=n_rows, clocks=clk)
+
+
+def hold_admm(tag, ka, iters):
+    """Kernel 1 on a path's recorded launch against its plain version: in
+    f64 within ADMM_F64_TOL of the scale; in f32 its error against the
+    plain version in f64 on the same inputs within SSM_F32_ROUNDING_RATIO
+    x the plain f32 version's, and its difference from the plain f32
+    version within the larger of ADMM_F32_TOL and twice the plain
+    version's own error (see SSM_F32_ROUNDING_RATIO)."""
+    count = admm_batched.launches
+    got = admm_batched(*ka, iters)
+    check(admm_batched.launches == count + 1,
+          "admm_batched did not launch its kernel")
+    plain = admm_batched_plain(*ka, iters)
+    dt = ka[0].dtype
+    tol, ratio = ADMM_F32_TOL, {}
+    if dt == torch.float32:
+        exact = admm_batched_plain(*[t.double() for t in ka], iters)
+        e_k, e_p = (max(float((a.double() - b).abs().max())
+                        for a, b in zip(r, exact)) for r in (got, plain))
+        ratio = dict(err_vs_f64_kernel=e_k, err_vs_f64_plain=e_p)
+        print(f"[admm_batched] {tag} against f64 on the same inputs: kernel "
+              f"{e_k:.3e}, plain {e_p:.3e} (limit {SSM_F32_ROUNDING_RATIO}x)")
+        check(e_k <= SSM_F32_ROUNDING_RATIO * max(e_p, 1e-30),
+              f"{tag}: the kernel's f32 error {e_k} exceeds "
+              f"{SSM_F32_ROUNDING_RATIO} x the plain version's {e_p}")
+        scale = max(max(float(b.abs().max()) for b in plain), 1.0)
+        tol = max(tol, 2.0 * e_p / scale)
+    out = compare("admm_batched", f"{tag} {str(dt)[6:]}", got, plain, dt,
+                  tol, f64_scaled=True)
+    out.update(ratio)
+    return out
+
+
+def closed_loop(tag, ctrl, plant_step, measure, x_plant, xf, n_ticks, dt):
+    """n_ticks of ctrl.evaluate against a plant: the commands (n_ticks,
+    m), the host ms of each tick that replanned (synchronized), and the
+    kernel launches over the loop."""
+    us, replan_ms = [], []
+    u_prev = np.zeros(ctrl.input_dim)
+    reset_counts()
+    for k in range(n_ticks):
+        n_solves = len(ctrl.solve_times)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = ctrl.evaluate(round(dt * k, 4), measure(x_plant), xf, u_prev)
+        torch.cuda.synchronize()
+        if len(ctrl.solve_times) > n_solves:
+            replan_ms.append(1e3 * (time.perf_counter() - t0))
+        x_plant = plant_step(x_plant, u)
+        us.append(u)
+        u_prev = u
+    counts = read_counts()
+    check(np.isfinite(np.asarray(us)).all(), f"{tag}: non-finite commands")
+    return np.asarray(us), replan_ms, counts
+
+
+def fallbacks(svc):
+    """Count the service's host-adapter fallbacks: wraps svc._solve_host
+    on the instance; returns the list the calls go into."""
+    calls = []
+    real = svc._solve_host
+
+    def counted(*a):
+        calls.append(a[0])
+        return real(*a)
+
+    svc._solve_host = counted
+    return calls
+
+
+def baseline_runs(tag, build, dev, card, want_per_solve, plant_selects=0):
+    """A baseline closed loop (ROMPC or Koopman MPC) built by
+    build(dtype, device) -> (ctrl, svc, loop): f32 on the card (timed,
+    kernel 1 recorded and held to its plain version on the first QP,
+    host-adapter fallbacks counted), f64 on the card and on the CPU; the
+    card runs' commands against the CPU run's. The plant may launch
+    kernel 2 plant_selects times a tick (the TPWL plant)."""
+    out = {}
+    res = {}
+    for name, dtype, device in (("f32", torch.float32, dev),
+                                ("f64", torch.float64, dev),
+                                ("cpu", torch.float64, "cpu")):
+        ctrl, svc, loop = build(dtype, device)
+        fb = fallbacks(svc)
+        with recording(batch_mpc, "admm_batched", n=1) as qp:
+            us, replan_ms, counts = loop(ctrl)
+        n_solves = len(ctrl.solve_times)
+        res[name] = us
+        print(f"[{tag}] {name}: {len(us)} ticks, {n_solves} replans, "
+              f"{len(fb)} host-adapter fallbacks, launches {counts}; "
+              f"{np.median(replan_ms):.2f} ms a replan (host clock, median "
+              f"of {len(replan_ms)}: "
+              f"{', '.join(f'{t:.1f}' for t in replan_ms)}) [{card}]")
+        rec = dict(replans=n_solves, fallbacks=len(fb), launches=counts,
+                   replan_ms=float(np.median(replan_ms)),
+                   replans_ms=replan_ms)
+        if name != "cpu":
+            # every replan's solve is one query of the fused service (plus
+            # the next one the splice sends ahead)
+            check(counts["admm_batched"] > 0
+                  and counts["admm_batched"] % want_per_solve == 0
+                  and counts["tpwl_select"] == plant_selects * len(us)
+                  and all(counts[k] == 0 for k in KERNELS
+                          if k not in ("admm_batched", "tpwl_select")),
+                  f"{tag} {name}: launches {counts}")
+            rec["admm_first_qp"] = hold_admm(f"{tag} first QP", qp[0][:8],
+                                             qp[0][8])
+            if name == "f32":
+                out["kernel_row"] = kernel_row(tag, admm_batched, qp[0][:8],
+                                               qp[0][8], card, 50)
+                out["kernel_row"]["launches"] = counts["admm_batched"]
+        out[name] = rec
+    for name, tol in (("f64", F64_CPU_AGREE_TOL), ("f32", BASELINE_F32_TOL)):
+        d = rel_diff(res[name], res["cpu"])
+        out[name]["cpu_rel_diff"] = d
+        print(f"[{tag}] {name} card vs f64 CPU commands: rel difference "
+              f"{d:.3e} (tol {tol})")
+        check(d <= tol, f"{tag} {name}: card vs CPU difference {d}")
+    out["launches"] = out["f32"]["launches"]
+    return out
+
+
+def phase_rompc(Cf, Hf, card, dev):
+    """ROMPC at examples/diamond_baselines_campaign.py:130-137's settings
+    on the campaign's linear ROM (N=20, N_replan=4, Qz = diag(100, 100,
+    0), R = 1e-4 I, Qf = 10 Qz, condensed, qp_backend 'pallas'), the
+    LinearROM itself as the plant, a figure-8 tip target about the rest
+    output; the delay cut from 1 s to BASELINE_DELAY."""
+    data = tpwl_to_linear_rom(ARTIFACT)
+    dt = 0.01
+    tt = dt * np.arange(1500)
+    fig8 = np.zeros((len(tt), 3))
+    fig8[:, 0] = -15.0 * np.sin(2 * np.pi * tt / 10.0)
+    fig8[:, 1] = 7.5 * np.sin(4 * np.pi * tt / 10.0)
+    Qz, R = np.diag([100.0, 100.0, 0.0]), 1e-4 * np.eye(4)
+
+    def build(dtype, device):
+        lin = LinearROM(data, dt, Cf=Cf, Hf=Hf, device=device)
+        svc = LinearMPCService(
+            lin, BASELINE_N_ROMPC, dt, QuadraticCost(Q=Qz, R=R, Qf=10 * Qz),
+            Target(t=tt, z=fig8), locp_backend="condensed",
+            qp_backend="pallas", dtype=dtype)
+        H = lin.H.cpu().numpy()
+        nx, ny = lin.state_dim, lin.C.shape[0]
+        ctrl = ROMPC(lin, QuadraticCost(Q=H.T @ Qz @ H, R=R),
+                     QuadraticCost(Q=np.eye(nx), R=np.eye(ny)), dt,
+                     N_replan=4, delay=BASELINE_DELAY, wait=True,
+                     solver_service=svc)
+        x0 = torch.zeros(nx, dtype=torch.float64, device=lin.device)
+        xf = to_numpy(lin.rom.x_ref).astype(float)
+        step = lambda x, u: lin.update_state(x, torch.as_tensor(
+            u, dtype=torch.float64, device=lin.device))
+        meas = lambda x: to_numpy(lin.x_to_zfyf(x, yf=True))
+        loop = lambda c: closed_loop("rompc", c, step, meas, x0, xf,
+                                     BASELINE_TICKS, dt)
+        return ctrl, svc, loop
+
+    return baseline_runs("rompc", build, dev, card, 4)
+
+
+def koopman_training(model64, dev):
+    """The recipe's EDMD (tasks/recipes.py:389-418) on a seeded rollout of
+    the campaign TPWL dictionary (the FEM plant is not ported): piecewise-
+    constant cable tensions in [0, 1500] mN held 0.25 s, the tip output
+    z, delay 1, degree 2. Returns the trained arrays and the scaling."""
+    dt, m_in = model64.pre_discretized_dt, model64.input_dim
+    rng = np.random.default_rng(444)
+    hold = int(round(0.25 / dt))
+    u_train = np.repeat(rng.uniform(0, 1500, (KOOPMAN_SAMPLES, m_in)),
+                        hold, axis=0)
+    X, _ = model64.rollout(np.zeros(model64.state_dim), u_train, dt)
+    y_train = to_numpy(model64.x_to_zfyf(X[:-1], zf=True))
+    ny = y_train.shape[1]
+    y_off = y_train.mean(axis=0)
+    y_fac = np.maximum(np.abs(y_train - y_off).max(axis=0), 1e-9)
+    u_fac = np.maximum(np.abs(u_train).max(axis=0), 1e-9)
+    yn, un = (y_train - y_off) / y_fac, u_train / u_fac
+    zeta = np.hstack([yn[1:], yn[:-1], un[:-1]])
+    A, B, C = train_edmd(zeta, un[1:], degree=2, reg=1e-8, device=dev)
+    return dict(A=A, B=B, C=C[:ny], ny=ny, m=m_in, nzeta=zeta.shape[1],
+                dt=dt, scale={"y_offset": y_off, "y_factor": y_fac,
+                              "u_offset": np.zeros(m_in), "u_factor": u_fac})
+
+
+def phase_koopman(model64, card, dev):
+    """Koopman MPC at the campaign's settings (examples/diamond_baselines_
+    campaign.py:154-158, tasks/recipes.py:417-435: delay 1, degree 2, N=10,
+    rollout_horizon=4, Qz = 100 I, R = 0.1 I, Qf = 5 Qz, U = [0, 1], dU =
+    +-0.08, qp_iters=600, rho_stages=6, condensed, 'pallas'), the model
+    trained by train_edmd (koopman_training), the TPWL dictionary as the
+    plant, the figure-8 tip target in the training's scaled coordinates;
+    the delay cut from 1 s to BASELINE_DELAY."""
+    tr = koopman_training(model64, dev)
+    dt, ny, m_in = tr["dt"], tr["ny"], tr["m"]
+    tt = dt * np.arange(1500)
+    z_abs = np.tile(model64.z_ref.cpu().numpy(), (len(tt), 1))
+    z_abs[:, 0] += -15.0 * np.sin(2 * np.pi * tt / 10.0)
+    z_abs[:, 1] += 7.5 * np.sin(4 * np.pi * tt / 10.0)
+    z_scaled = (z_abs - tr["scale"]["y_offset"]) / tr["scale"]["y_factor"]
+    Qz, R = 100.0 * np.eye(ny), 1e-1 * np.eye(m_in)
+    print(f"[koopman] EDMD on {KOOPMAN_SAMPLES} held inputs: n_lift="
+          f"{tr['A'].shape[0]}, nzeta={tr['nzeta']}; QP of n="
+          f"{KOOPMAN_N * m_in}")
+
+    def build(dtype, device):
+        km = koopman_model_from_arrays(
+            tr["A"], tr["B"], tr["C"], n=ny, m=m_in, nzeta=tr["nzeta"],
+            delays=1, obs_degree=2, Ts=dt, scale_dict=tr["scale"],
+            device=device)
+        svc = LinearMPCService(
+            km, KOOPMAN_N, dt, QuadraticCost(Q=Qz, R=R, Qf=5 * Qz),
+            Target(t=tt, z=z_scaled),
+            U=HyperRectangle(np.ones(m_in), np.zeros(m_in)),
+            dU=HyperRectangle(0.08 * np.ones(m_in), -0.08 * np.ones(m_in)),
+            max_iter=2000, locp_backend="condensed", qp_backend="pallas",
+            qp_iters=600, rho_stages=6, dtype=dtype)
+        ctrl = KoopmanMPC(km, delay=BASELINE_DELAY, wait=True,
+                          solver_service=svc, rollout_horizon=4)
+        plant = model64 if device != "cpu" else model64.to(device="cpu")
+        x0 = torch.zeros(plant.state_dim, dtype=torch.float64,
+                         device=plant.device)
+        step = lambda x, u: plant.update_state(x, torch.as_tensor(
+            u, dtype=torch.float64, device=plant.device), dt)
+        meas = lambda x: to_numpy(plant.x_to_zfyf(x, zf=True))
+        loop = lambda c: closed_loop("koopman", c, step, meas, x0, None,
+                                     BASELINE_TICKS, dt)
+        return ctrl, svc, loop
+
+    return baseline_runs("koopman", build, dev, card, 6, plant_selects=1)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -1405,6 +2014,14 @@ def main():
             f"ssm diamond {form}", "diamond", form, SSM_B_DIAMOND, card, dev,
             False)
 
+    # 15.-18. the stage LOCP (bench.py section 4b), GuSTO's stage backend
+    # at N=200, ROMPC and Koopman MPC
+    rec["stage_locp"] = phase_stage_locp(model64, card, dev)
+    rec["gusto_stage"] = phase_stage_gusto(model64, model, card, dev)
+    rec["rompc"] = phase_rompc(Cf, Hf, card, dev)
+    rec["koopman"] = phase_koopman(model64, card, dev)
+    torch.cuda.empty_cache()
+
     k2 = rec["tpwl_select"]["plan"]
     paths = {"condensed": rec["condensed"]["launches"],
              "path_a": rec["path_a"]["launches"],
@@ -1421,7 +2038,15 @@ def main():
              "ssm_sparse": rec["ssm_sparse"]["launches"],
              "ssm_diamond_condensed": rec["ssm_diamond_condensed"][
                  "launches"],
-             "ssm_diamond_sparse": rec["ssm_diamond_sparse"]["launches"]}
+             "ssm_diamond_sparse": rec["ssm_diamond_sparse"]["launches"],
+             "stage_locp_cr": rec["stage_locp"]["cr"]["launches"],
+             "stage_locp_scan": rec["stage_locp"]["scan"]["launches"],
+             "gusto_stage_diamond": rec["gusto_stage"]["launches"],
+             "gusto_stage_diamond_f64": rec["gusto_stage"]["launches_f64"],
+             "rompc": rec["rompc"]["launches"],
+             "rompc_f64": rec["rompc"]["f64"]["launches"],
+             "koopman": rec["koopman"]["launches"],
+             "koopman_f64": rec["koopman"]["f64"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -1464,6 +2089,18 @@ def main():
                              f"ssm_{form}",
                              r[f"float32 B={SSM_B}"]["max_abs_err"],
                              r["kernel_row"]))
+    # kernel 1 on the ROMPC and Koopman MPC steps (phases 17-18), and
+    # kernel 2 at GuSTO's stage linearization (phase 16)
+    for path in ("rompc", "koopman"):
+        r = rec[path]
+        kernels.append(entry("admm_batched", "pallas_admm.py:132", path,
+                             r["f32"]["admm_first_qp"]["max_abs_err"],
+                             r["kernel_row"]))
+    sel = rec["gusto_stage"]["select f32"]
+    kernels.append(entry(
+        "tpwl_select", "pallas_tpwl.py:24", "gusto_stage_diamond",
+        max(v["max_abs_err"] for v in sel.values()),
+        rec["gusto_stage"]["select_row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -1471,7 +2108,10 @@ def main():
                           rec["lti"]["pallas"]["kernel_row"],
                           rec["gusto_sparse"]["kernel_row"],
                           rec["ssm_condensed"]["kernel_row"],
-                          rec["ssm_sparse"]["kernel_row"]]
+                          rec["ssm_sparse"]["kernel_row"],
+                          rec["rompc"]["kernel_row"],
+                          rec["koopman"]["kernel_row"],
+                          rec["gusto_stage"]["select_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

@@ -6,8 +6,9 @@ pre_discretized_dt. A caller that holds such a model flattens it into a
 dict of numpy arrays, with the POD basis as the dict {"U", "q_ref",
 "v_ref"} under "rom" (the JAX POD's `get_info()`), and hands that dict to
 `model_from_arrays`. An SSMModel goes the same way through
-`ssm_model_arrays` and `ssm_model_from_arrays`. This module itself imports
-nothing of JAX.
+`ssm_model_arrays` and `ssm_model_from_arrays`, a KoopmanModel through
+`koopman_model_arrays` and `koopman_model_from_dict`. This module itself
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from soft_robot_control_tpu_torch.models.koopman import (KoopmanModel,
+                                                         KoopmanScaling,
+                                                         ScaleRows)
 from soft_robot_control_tpu_torch.models.ssm import SSMModel
 from soft_robot_control_tpu_torch.models.tpwl import TPWLModel
 from soft_robot_control_tpu_torch.rom.pod import POD
@@ -75,3 +79,34 @@ def ssm_model_from_arrays(arrays: dict, dtype=torch.float64,
     model (see `ssm_model_arrays`), in `dtype` on `device`."""
     return SSMModel(**{k: arrays[k] for k in SSMModel._children + _SSM_STATIC},
                     dtype=dtype, device=device)
+
+
+_KOOPMAN_STATIC = ("n", "m", "state_dim", "delays", "obs_degree", "obs_type",
+                   "Ts", "DMD")
+
+
+def koopman_model_arrays(model) -> dict:
+    """The dict `koopman_model_from_dict` takes, from any object with the
+    KoopmanModel attributes (the JAX model or this package's): A_d, B_d,
+    C, V, W as numpy arrays, the scaling as the dict of its four rows, and
+    the static fields."""
+    out = {k: _np(getattr(model, k)) for k in ("A_d", "B_d", "C", "V", "W")}
+    sc = KoopmanScaling(model.scale)
+    out["scale"] = {k: np.asarray(getattr(sc, k)).reshape(-1) for k in (
+        "y_offset", "y_factor", "u_offset", "u_factor")}
+    out.update({k: getattr(model, k) for k in _KOOPMAN_STATIC})
+    return out
+
+
+def koopman_model_from_dict(arrays: dict, dtype=torch.float64,
+                            device="cuda") -> KoopmanModel:
+    """This package's KoopmanModel from the arrays and static fields of a
+    Koopman model (see `koopman_model_arrays`), in `dtype` on `device`."""
+    obj = KoopmanModel.__new__(KoopmanModel)
+    a = arrays
+    obj._setup(a["A_d"], a["B_d"], a["C"], a["V"], a["W"], n=a["n"],
+               m=a["m"], nzeta=a["state_dim"], delays=a["delays"],
+               obs_degree=a["obs_degree"], obs_type=a["obs_type"],
+               Ts=a["Ts"], scale=ScaleRows(a["scale"]), dmd=a["DMD"],
+               dtype=dtype, device=device)
+    return obj

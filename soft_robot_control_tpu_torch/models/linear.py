@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from soft_robot_control_tpu_torch.core import discretize as disc
+from soft_robot_control_tpu_torch.models.tpwl import shift_reference
 from soft_robot_control_tpu_torch.rom.pod import POD
 
 
@@ -63,6 +64,12 @@ class LinearROM:
     def input_dim(self):
         return self.B_d.shape[1]
 
+    def get_state_dim(self):
+        return self.state_dim
+
+    def get_input_dim(self):
+        return self.input_dim
+
     def get_output_dim(self):
         return None if self.H is None else self.H.shape[0]
 
@@ -74,6 +81,13 @@ class LinearROM:
     # dynamics -------------------------------------------------------------
     def get_jacobians(self, x, dt=None, u=None):
         return self.A_d, self.B_d, self.d_d
+
+    @staticmethod
+    def update_dynamics(x, u, A_d, B_d, d_d):
+        """A_d x + B_d u + d_d in the promoted dtype of x and A_d."""
+        dt = torch.promote_types(x.dtype, A_d.dtype)
+        return (A_d.to(dt) @ x.to(dt) + B_d.to(dt) @ u.to(dt)
+                + d_d.to(dt))
 
     def update_state(self, x, u):
         """Next states of x (..., n) under inputs u (..., m), in the
@@ -100,12 +114,23 @@ class LinearROM:
         return x, z
 
     # output maps (the TPWL model's contract) --------------------------------
+    def zfyf_to_zy(self, zf=None, yf=None):
+        """Full-order output zf or measurement yf (tensor, array or list)
+        about the reference: zf - z_ref or yf - y_ref."""
+        return shift_reference(zf, yf, self.z_ref, self.y_ref, -1.0)
+
+    def zy_to_zfyf(self, z=None, y=None):
+        return shift_reference(z, y, self.z_ref, self.y_ref, 1.0)
+
     def x_to_zfyf(self, x, zf=False, yf=False):
         if zf and self.H is not None:
             return x.to(self.H.dtype) @ self.H.T + self.z_ref
         if yf and self.C is not None:
             return x.to(self.C.dtype) @ self.C.T + self.y_ref
         raise RuntimeError("Need to set output or meas. model")
+
+    def get_sim_params(self):
+        return {"type": "LinearROM"}
 
 
 def _dense(M):

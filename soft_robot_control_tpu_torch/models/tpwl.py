@@ -23,6 +23,7 @@ import torch
 from soft_robot_control_tpu_torch.core import discretize as disc
 from soft_robot_control_tpu_torch.core.packing import qv2x, x2qv
 from soft_robot_control_tpu_torch.rom.pod import POD
+from soft_robot_control_tpu_torch.utils.device import as_tensor
 
 DISCR_METHOD_DEFAULT = "fe"
 TPWL_METHOD_DEFAULT = "nn"
@@ -44,8 +45,7 @@ class TPWLModel:
                  tpwl_method: str = TPWL_METHOD_DEFAULT,
                  pre_discretized_dt: Optional[float] = None,
                  device="cuda"):
-        from soft_robot_control_tpu_torch.utils.device import (as_tensor,
-                                                               resolve_device)
+        from soft_robot_control_tpu_torch.utils.device import resolve_device
 
         dev = resolve_device(device)
         t = lambda a: None if a is None else as_tensor(a, device=dev)
@@ -102,6 +102,19 @@ class TPWLModel:
     def meas_dim(self):
         return None if self.C is None else self.C.shape[0]
 
+    # the reference API's accessors, which the controllers call
+    def get_state_dim(self):
+        return self.state_dim
+
+    def get_input_dim(self):
+        return self.input_dim
+
+    def get_output_dim(self):
+        return self.output_dim
+
+    def get_meas_dim(self):
+        return self.meas_dim
+
     nonlinear_observer = False
 
     # output / measurement models ----------------------------------------
@@ -116,12 +129,28 @@ class TPWLModel:
         H = self.rom.project_output_matrix(Hf)
         return self._replace(H=H, z_ref=_apply(Hf, self.rom.x_ref, H.dtype))
 
+    def zfyf_to_zy(self, zf=None, yf=None):
+        """Full-order output zf or measurement yf about the reference."""
+        return shift_reference(zf, yf, self.z_ref, self.y_ref, -1.0)
+
+    def zy_to_zfyf(self, z=None, y=None):
+        return shift_reference(z, y, self.z_ref, self.y_ref, 1.0)
+
     def x_to_zfyf(self, x, zf=False, yf=False):
         """Full-order output (zf) or measurement (yf) of states x (..., n)."""
         if zf and self.H is not None:
             return x @ self.H.T + self.z_ref
         if yf and self.C is not None:
             return x @ self.C.T + self.y_ref
+        raise RuntimeError("Need to set output or meas. model")
+
+    def x_to_zy(self, x, z=False, y=False):
+        """Reduced output (z) or measurement (y) of states x (..., n),
+        about the reference."""
+        if z and self.H is not None:
+            return x @ self.H.T
+        if y and self.C is not None:
+            return x @ self.C.T
         raise RuntimeError("Need to set output or meas. model")
 
     # point selection -----------------------------------------------------
@@ -233,6 +262,15 @@ class TPWLModel:
         z = self.x_to_zfyf(x, zf=True) if self.H is not None else None
         return x, z
 
+    def get_sim_params(self):
+        """The model's settings, for experiment logs."""
+        return {"beta_weighting": None if self.beta is None
+                else float(self.beta),
+                "discr_method": self.discr_method,
+                "tpwl_method": self.tpwl_method,
+                "dist_weights": {"q": float(self.dist_w_q),
+                                 "v": float(self.dist_w_v)}}
+
     def get_characteristic_dx(self, dt):
         """max |x_{k+1} - x_k| over the dictionary points stepped with
         their own inputs."""
@@ -247,6 +285,17 @@ class TPWLModel:
 
         return tpwl_select(x, self.q, self.v, self.A_d, self.B_d, self.d_d,
                            self.dist_w_q, self.dist_w_v, index_only)
+
+
+def shift_reference(z, y, z_ref, y_ref, sign):
+    """z + sign z_ref where z and z_ref are given, else y + sign y_ref (z
+    and y tensors, arrays or lists), in the reference's dtype on its
+    device: the output maps' move to and from the reference."""
+    if z is not None and z_ref is not None:
+        return as_tensor(z, z_ref.dtype, z_ref.device) + sign * z_ref
+    if y is not None and y_ref is not None:
+        return as_tensor(y, y_ref.dtype, y_ref.device) + sign * y_ref
+    raise RuntimeError("Need to set output or meas. model")
 
 
 def _dense(M):

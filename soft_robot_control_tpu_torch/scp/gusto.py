@@ -138,9 +138,18 @@ class GuSTO:
                 nonlinear_observer=self.nonlinear_observer,
                 warm_start=warm_start, device=self.device, **kwargs)
         elif locp_backend == "stage":
-            raise NotImplementedError(
-                "locp_backend='stage' (the stage-structured long-horizon "
-                "LOCP) waits for ROADMAP.md, modules to port, item 13")
+            # block-sparse long-horizon backend (scp/locp_stages.py); only
+            # the linear-observer path is stage-structured
+            if self.nonlinear_observer or Qzf is not None or Xf is not None:
+                raise NotImplementedError(
+                    "stage backend supports the linear-observer LOCP "
+                    "without terminal cost/set")
+            from soft_robot_control_tpu_torch.scp.locp_stages import (
+                StageLOCPAdapter)
+
+            self.locp = StageLOCPAdapter(N, model.H, Qz, R, U=U, X=X, dU=dU,
+                                         x_char=self.x_char,
+                                         device=self.device, **kwargs)
         else:
             from soft_robot_control_tpu_torch.scp.locp import LOCP
 

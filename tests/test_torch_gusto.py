@@ -223,8 +223,11 @@ def test_service_matches_jax():
 def test_unported_options_raise():
     N, dt = 4, 0.1
     _, tm, Qz, R, U, z, x0, u_init, x_init = _dubins(N, dt)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        GuSTO(tm, N, dt, Qz, R, x0, u_init, x_init, locp_backend="stage")
+    # the stage backend runs (tests/test_torch_locp_stages.py), but not
+    # with a terminal cost, as in the JAX package
+    with pytest.raises(NotImplementedError, match="stage backend"):
+        GuSTO(tm, N, dt, Qz, R, x0, u_init, x_init, locp_backend="stage",
+              Qzf=Qz)
     # a nonlinear observer is ported (tests/test_torch_ssm.py), but not
     # with the device loop, as in the JAX package
     tm.nonlinear_observer = True

@@ -647,3 +647,62 @@ def test_ssm_mpc_on_the_card_matches_the_cpu(cuda_device, name,
         assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
     assert all(np.isfinite(a).all()
                for a in logs[str(cuda_device), torch.float32])
+
+
+@pytest.mark.parametrize("n,m", [(40, 152), (80, 1)])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_admm_kernel_at_the_baselines_shapes(cuda_device, n, m, B, dtype,
+                                             tol):
+    """Kernel 1 at the shapes of the LTI baselines' QPs: Koopman MPC's
+    condensed LOCP (N=10 steps of 4 cables: n=40, and m=152 rows of the
+    U and dU boxes) and ROMPC's (n=80, no constraint: the one placeholder
+    row), 100 iterations."""
+    args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=n + m,
+                                                   inf_rows=m // 8)]
+    launches = admm_batched.launches
+    got = admm_batched(*args, 100)
+    ref = admm_batched_plain(*args, 100)
+    torch.cuda.synchronize()
+    assert admm_batched.launches == launches + 1
+    _assert_close(got, ref, dtype, tol)
+
+
+@pytest.mark.parametrize("kkt_solver", ["cr", "scan"])
+@pytest.mark.parametrize("trust_region", [False, True])
+def test_stage_locp_on_the_card_matches_the_cpu(cuda_device, kkt_solver,
+                                                trust_region):
+    """StageLOCP at bench.py section 4b's settings (the campaign
+    dictionary's first discrete point repeated, Qz = 100 I, R = 1e-3 I,
+    cables in [0, 1500]) at N=64, 100 ADMM iterations, in f64 on the card
+    against the CPU: w within 1e-8 of its scale (measured on an H100
+    80GB HBM3: 1.1e-9 with 'cr', whose block inverses pass the 1e3
+    equality rho's amplification on, 1e-11 with 'scan'); no kernel
+    launches."""
+    from soft_robot_control_tpu_torch.scp.locp_stages import StageLOCP
+
+    N = 64
+    d = campaign_dict([0])
+    H = campaign_output_maps()[1]
+    model = from_tpwl_dict(d, params=CAMPAIGN_PARAMS, Hf=H, device="cpu")
+    rep = lambda a: np.repeat(np.asarray(a, np.float64), N, axis=0)
+    rng = np.random.default_rng(3)
+    args = (rep(d["A_d"]), rep(d["B_d"]), rep(d["d_d"]), np.zeros(60),
+            0.05 * rng.normal(size=(N + 1, 3)))
+    kw = {}
+    if trust_region:
+        kw = dict(delta=5.0, omega=1.0, xk=0.1 * rng.normal(size=(N + 1, 60)))
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        st = StageLOCP(N, model.H.cpu().numpy(), 100.0 * np.eye(3),
+                       1e-3 * np.eye(4),
+                       U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
+                       trust_region=trust_region, kkt_solver=kkt_solver,
+                       device=dev)
+        admm_batched.launches = tpwl_select.launches = 0
+        out[str(dev)] = st.solve(*args, iters=100, **kw)[0].cpu().numpy()
+        assert admm_batched.launches == tpwl_select.launches == 0
+    ref = out["cpu"]
+    assert np.abs(out[str(cuda_device)] - ref).max() <= \
+        1e-8 * max(np.abs(ref).max(), 1.0)

@@ -54,7 +54,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/core/types.py",
             "soft_robot_control_tpu_torch/ops/monomials.py",
             "soft_robot_control_tpu_torch/models/ssm.py",
-            "soft_robot_control_tpu_torch/estimators/ssm_observer.py"} <= names
+            "soft_robot_control_tpu_torch/estimators/ssm_observer.py",
+            "soft_robot_control_tpu_torch/qp/structured.py",
+            "soft_robot_control_tpu_torch/qp/cyclic_reduction.py",
+            "soft_robot_control_tpu_torch/scp/locp_stages.py",
+            "soft_robot_control_tpu_torch/scp/standalone.py",
+            "soft_robot_control_tpu_torch/estimators/luenberger.py",
+            "soft_robot_control_tpu_torch/control/rompc.py",
+            "soft_robot_control_tpu_torch/control/policies.py",
+            "soft_robot_control_tpu_torch/models/koopman.py",
+            "soft_robot_control_tpu_torch/control/koopman.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
     assert not {f: r for f, r in bad.items() if r}
@@ -79,11 +88,25 @@ def _entry_points():
     from soft_robot_control_tpu_torch.tasks.demo import make_demo_tpwl
     from soft_robot_control_tpu_torch.control.batch_mpc import BatchSSMMPC
     from soft_robot_control_tpu_torch.models.ssm import from_mat
+    from soft_robot_control_tpu_torch.qp.structured import StructuredKKT
+    from soft_robot_control_tpu_torch.scp.locp_stages import (
+        StageLOCP, StageLOCPAdapter)
+    from soft_robot_control_tpu_torch.control.rompc import ROMPC
+    from soft_robot_control_tpu_torch.estimators.luenberger import (
+        DiscreteLuenbergerObserver)
+    from soft_robot_control_tpu_torch.models.koopman import (
+        koopman_model_from_arrays, train_edmd)
+    from soft_robot_control_tpu_torch.control.koopman import KoopmanMPC
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
     class LTI:  # numpy arrays: no device of its own
         A_d, B_d, d_d, H = np.eye(2), np.ones((2, 1)), np.zeros(2), np.eye(2)
+        C = np.eye(2)
+
+    cost = QuadraticCost(np.eye(2), np.eye(1))
+    scale = {k: np.ones(2 if k[0] == "y" else 1) for k in (
+        "y_offset", "y_factor", "u_offset", "u_factor")}
 
     return {
         "from_tpwl_dict": lambda: from_tpwl_dict(CAMPAIGN),
@@ -112,6 +135,19 @@ def _entry_points():
         "BatchSSMMPC": lambda: BatchSSMMPC(
             from_mat(SSM_ARTIFACTS["trunk"], None, device="cpu"),
             np.eye(6), np.eye(8), N=3, dt=0.02),
+        "StructuredKKT": lambda: StructuredKKT(3, 2, 1),
+        "StageLOCP": lambda: StageLOCP(3, np.eye(2), np.eye(2), np.eye(1)),
+        "StageLOCPAdapter": lambda: StageLOCPAdapter(
+            3, np.eye(2), np.eye(2), np.eye(1)),
+        "DiscreteLuenbergerObserver": lambda: DiscreteLuenbergerObserver(
+            LTI(), np.eye(2), np.eye(2)),
+        "ROMPC": lambda: ROMPC(LTI(), cost, cost, 0.1),
+        "KoopmanModel": lambda: koopman_model_from_arrays(
+            np.eye(3), np.ones((3, 1)), np.eye(2, 3), n=2, m=1, nzeta=2,
+            delays=0, obs_degree=1, Ts=0.1, scale_dict=scale),
+        "train_edmd": lambda: train_edmd(np.ones((4, 2)), np.ones((4, 1)),
+                                         degree=1),
+        "KoopmanMPC": lambda: KoopmanMPC(LTI()),
     }
 
 
@@ -122,7 +158,11 @@ def _entry_points():
                                   "CondensedLOCPAdapter", "DubinsCar",
                                   "make_demo_tpwl", "LinearROM",
                                   "LinearMPCService", "from_mat",
-                                  "BatchSSMMPC"])
+                                  "BatchSSMMPC", "StructuredKKT",
+                                  "StageLOCP", "StageLOCPAdapter",
+                                  "DiscreteLuenbergerObserver", "ROMPC",
+                                  "KoopmanModel", "train_edmd",
+                                  "KoopmanMPC"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
