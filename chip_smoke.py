@@ -108,6 +108,34 @@ the tolerances stated below.
    the model trained by the port's train_edmd on a seeded rollout of the
    campaign dictionary, the dictionary as the plant: kernel 1 (B=1, n=40,
    m=152) 6 launches a solve, the same checks and reports as 17.
+19. the golden chain loop: tests/test_golden.py's closed loop (the chain
+   FEM surrogate, its TPWL model and output maps from the committed
+   tests/golden/chain_pipeline_arrays.npz, GuSTOService(N=5, dense backend)
+   behind scp(N_replan=2, mpc=True), the EKF, 3 s at dt=0.02) through
+   run_closed_loop in f64 on the card, held to
+   tests/golden/closed_loop_chain.npz at the golden test's tolerances (z
+   rtol 1e-6, atol 1e-9; u rtol 1e-5, atol 1e-8); kernel 2 the only
+   kernel, held to its plain version on its first call of each shape and
+   table; ms a tick and a replan, launches a tick and a replan;
+20. the Diamond campaign's closed loop at full width
+   (examples/diamond_tet_campaign.py:158-190, tasks/recipes.py:212-268):
+   GuSTOService(TPWLGuSTO, N=10, dt=0.01, Qz = diag(100, 100, 0), R = 1e-5
+   I, U = [0, 1500]^4, one LOCP a query, no trust region, condensed,
+   oneshot_iters=2, plan_bound=60, polish off) behind scp(N_replan=2,
+   mpc=True, feedback=True) with 1087 DARE gains, the EKF, the figure-8
+   target, commands clamped to [0, 1500]; the plant the dictionary lifted
+   to the 9768-dim full state through its POD basis (a stand-in for the
+   tet-FEM plant, whose mesh is not in the repository); the delay cut to 2
+   ticks, then 20 ticks. f32 on the card (timed; kernel 2 held to its
+   plain version on its first call of each shape, and timed at B=1), f64
+   on the card against f64 on the CPU (z and u within F64_CPU_AGREE_TOL of
+   their scale), f32 within CAMPAIGN_F32_TOL; the f32 DARE gains against
+   the f64 ones; a profiler pass (busy share, device operations a tick);
+21. the other policies on the same model and plant, 10 ticks each after
+   the delay, f64 on the card against f64 on the CPU: ilqr (tf = 0.2 s, 20
+   steps, iLQRConfig defaults; launches of kernel 2 an iteration),
+   TrajTracking along a rollout of the dictionary, StateDLQR and StateCLQR
+   at a dictionary point; ms a policy computation.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. The last three lines of standard output are the per-kernel JSON
@@ -136,6 +164,9 @@ from soft_robot_control_tpu_torch.control.koopman import (  # noqa: E402
     KoopmanMPC)
 from soft_robot_control_tpu_torch.control.linear_mpc import (  # noqa: E402
     LinearMPCService)
+from soft_robot_control_tpu_torch.control.mpc import scp  # noqa: E402
+from soft_robot_control_tpu_torch.control.policies import (  # noqa: E402
+    StateCLQR, StateDLQR, TrajTracking, ilqr)
 from soft_robot_control_tpu_torch.control.rompc import ROMPC  # noqa: E402
 from soft_robot_control_tpu_torch.control.service import (  # noqa: E402
     GuSTOService)
@@ -143,9 +174,13 @@ from soft_robot_control_tpu_torch.core.constraints import (  # noqa: E402
     HyperRectangle)
 from soft_robot_control_tpu_torch.core.types import (  # noqa: E402
     QuadraticCost, Target)
+from soft_robot_control_tpu_torch.estimators.ekf import (  # noqa: E402
+    DiscreteEKFObserver)
 from soft_robot_control_tpu_torch.models.dubins import DubinsCar  # noqa: E402,E501
 from soft_robot_control_tpu_torch.models.interfaces import (  # noqa: E402
     TPWLGuSTO)
+from soft_robot_control_tpu_torch.models.convert import (  # noqa: E402
+    model_from_arrays, surrogate_from_arrays, unflatten_arrays)
 from soft_robot_control_tpu_torch.models.koopman import (  # noqa: E402
     koopman_model_from_arrays, train_edmd)
 from soft_robot_control_tpu_torch.models.linear import (  # noqa: E402
@@ -172,6 +207,8 @@ from soft_robot_control_tpu_torch.scp.locp_stages import (  # noqa: E402
     StageLOCP, StageLOCPAdapter)
 from soft_robot_control_tpu_torch.scp.standalone import (  # noqa: E402
     run_gusto_standalone)
+from soft_robot_control_tpu_torch.sim.closed_loop import (  # noqa: E402
+    run_closed_loop)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
     linearModel)
 from soft_robot_control_tpu_torch.utils.device import to_numpy  # noqa: E402
@@ -287,6 +324,29 @@ STAGE_GUSTO_F32_TOL = 1e-3
 BASELINE_N_ROMPC, KOOPMAN_N, KOOPMAN_SAMPLES = 20, 10, 60
 BASELINE_DELAY, BASELINE_TICKS = 0.02, 18
 BASELINE_F32_TOL = 1e-3
+# The golden chain loop (phase 19): tests/golden/ fixtures written by the
+# JAX package, held at tests/test_golden.py's (rtol, atol)
+CHAIN_FIXTURE = os.path.join(HERE, "tests", "golden",
+                             "chain_pipeline_arrays.npz")
+GOLDEN_CHAIN = os.path.join(HERE, "tests", "golden", "closed_loop_chain.npz")
+GOLDEN_DT = 0.02
+GOLDEN_Z_TOL, GOLDEN_U_TOL = (1e-6, 1e-9), (1e-5, 1e-8)
+# The campaign's closed loops (phases 20-21): examples/diamond_tet_
+# campaign.py:158-190's real-time MPC at its N=10, the delay cut from 1 s
+# to 2 ticks, then 20 ticks (10 for each other policy). GuSTO's polish
+# step is off: it guesses the active set from the signs of duals that are
+# rounding noise at R = 1e-5 I, so two runtimes (the card and the CPU; the
+# port and the JAX package) can take different plans from one query on,
+# which the DARE gains (about sqrt(Qz / R)) amplify (ROADMAP.md section 3)
+CAMPAIGN_DT, CAMPAIGN_N, CAMPAIGN_DELAY = 0.01, 10, 0.02
+CAMPAIGN_TICKS, POLICY_TICKS, ILQR_STEPS = 20, 10, 20
+CAMPAIGN_GUSTO = dict(max_gusto_iters=0, convg_thresh=1e-2,
+                      is_tr_active=False, locp_backend="condensed",
+                      oneshot_iters=2, plan_bound=60.0, polish=False)
+# f32 card loop against the f64 CPU loop, z and u over their scale:
+# measured on an H100 80GB HBM3 at 3.7e-3 (2.8e-3 in a CPU rehearsal; the
+# f32 DARE gains at R = 1e-5 I read 2.7e-6 of their scale from f64)
+CAMPAIGN_F32_TOL = 2e-2
 
 
 def check(ok, msg):
@@ -1915,6 +1975,439 @@ def phase_koopman(model64, card, dev):
     return baseline_runs("koopman", build, dev, card, 6, plant_selects=1)
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-21: the host orchestration layer, the closed-loop harness
+# driving the policies, observers and LQR family against a plant
+
+
+class OutputMap:
+    """An output or measurement model z = M x on tensors (the recipes'
+    linear maps, tasks/recipes.py:_run_and_save)."""
+
+    def __init__(self, M, device):
+        self.M = torch.as_tensor(np.array(M), device=device)
+
+    def evaluate(self, x, generator=None):
+        return self.M.to(x.dtype) @ x
+
+
+class LiftedPlant:
+    """The campaign's TPWL dictionary lifted to the 9768-dim full state
+    through its POD basis, standing in for the tet-FEM plant whose mesh is
+    not in the repository: x+ = lift(update_state(project(x), u, dt)),
+    one launch of kernel 2 a step on a card."""
+
+    dtype = torch.float64
+
+    def __init__(self, model):
+        self.m = model
+        self.input_dim = model.input_dim
+
+    @property
+    def device(self):
+        return self.m.device
+
+    def x_rest(self):
+        return self.m.rom.x_ref.to(torch.float64)
+
+    def step(self, x, u, dt):
+        rom = self.m.rom
+        return rom.lift_x(self.m.update_state(rom.project_x(x),
+                                              u.to(self.m.q.dtype), dt))
+
+
+def timed_ticks(ctrl, sync=True):
+    """Wrap ctrl.evaluate on the instance: the host ms of every tick
+    (synchronized on a card), whether it replanned (a new solve, or a new
+    policy), and kernel 2's launches inside it. Returns the list the
+    ticks go into."""
+    ticks, real = [], ctrl.evaluate
+
+    def evaluate(*a):
+        n0 = len(getattr(ctrl, "solve_times", ()))
+        k0 = tpwl_select.launches
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = real(*a)
+        if sync:
+            torch.cuda.synchronize()
+        ticks.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                          replan=len(getattr(ctrl, "solve_times", ())) > n0,
+                          selects=tpwl_select.launches - k0))
+        return u
+
+    ctrl.evaluate = evaluate
+    return ticks
+
+
+def tick_stats(tag, ticks, counts, n_ticks, card):
+    """ms a tick and a replan (host clock, medians) and kernel 2's
+    launches a tick and a replan, from timed_ticks' records; printed."""
+    rep = [t for t in ticks if t["replan"]]
+    plain = [t for t in ticks if not t["replan"]]
+    med = lambda v: float(np.median(v)) if v else float("nan")
+    out = dict(tick_ms=med([t["ms"] for t in ticks]),
+               replan_ms=med([t["ms"] for t in rep]),
+               other_tick_ms=med([t["ms"] for t in plain]),
+               ticks=len(ticks), replans=len(rep),
+               selects_a_replan=med([t["selects"] for t in rep]),
+               selects_a_tick=med([t["selects"] for t in plain]),
+               outside_ticks=counts["tpwl_select"]
+               - sum(t["selects"] for t in ticks), launches=counts)
+    print(f"[{tag}] {n_ticks} ticks, {out['replans']} replans: "
+          f"{out['tick_ms']:.2f} ms a tick (median; {out['other_tick_ms']:.2f}"
+          f" without a replan), {out['replan_ms']:.2f} ms a replan (host "
+          f"clock); kernel 2 {out['selects_a_tick']:.0f} launches a tick "
+          f"without a replan, {out['selects_a_replan']:.0f} a replan, "
+          f"{out['outside_ticks']} outside the ticks (the plant; the "
+          f"service's first solve where counted); launches {counts} "
+          f"[{card}]")
+    return out
+
+
+def chain_models(dev):
+    """The committed chain fixture (tests/helpers.py:chain_pipeline(10
+    nodes, 4 cables, dt=0.02, threshold 0.5), written by the JAX
+    pipeline) on `dev`: (plant, TPWL model pre-discretized at 0.02, Hf,
+    Cf)."""
+    with np.load(CHAIN_FIXTURE) as f:
+        a = unflatten_arrays(f)
+    return (surrogate_from_arrays(a["plant"], device=dev),
+            model_from_arrays(a["tpwl"], device=dev), a["Hf"], a["Cf"])
+
+
+def golden_chain_loop(dev):
+    """tests/test_golden.py:_run on `dev`, f64: TPWLGuSTO behind
+    GuSTOService(N=5, dt=0.04, Qz=200, R=1e-5 I, max_gusto_iters=2,
+    convg_thresh=1e-2, the dense backend), the EKF with W = diag(dx_char
+    + 1e-8), V = 0.1 I, scp(N_replan=2, delay=0.5, mpc=True), 3 s at
+    dt=0.02 through run_closed_loop on the FEM surrogate. Returns (sim
+    data, timed ticks, model)."""
+    dt = GOLDEN_DT
+    plant, model, Hf, Cf = chain_models(dev)
+    Qz, R = 200.0 * np.eye(model.H.shape[0]), 1e-5 * np.eye(plant.input_dim)
+    t_t = np.arange(0.0, 8.0, dt)
+    z_eq = float((to_numpy(plant.x_rest()) @ Hf.T)[0])
+    z_t = (z_eq + 0.05 * np.sin(2 * np.pi * t_t / 3.0))[:, None]
+    svc = GuSTOService(TPWLGuSTO(model), 5, 2 * dt, Qz, R,
+                       to_numpy(model.rom.project_x(model.rom.x_ref)),
+                       t=t_t, z=to_numpy(model.zfyf_to_zy(zf=z_t)),
+                       max_gusto_iters=2, convg_thresh=1e-2, verbose=0)
+    H = to_numpy(model.H)
+    dx = to_numpy(model.get_characteristic_dx(dt))
+    ctrl = scp(model, QuadraticCost(Q=H.T @ Qz @ H, R=R), dt, N_replan=2,
+               observer=DiscreteEKFObserver(model, W=np.diag(dx + 1e-8),
+                                            V=0.1 * np.eye(Cf.shape[0])),
+               delay=0.5, wait=True, solver_service=svc, mpc=True)
+    ticks = timed_ticks(ctrl, sync=torch.device(dev).type == "cuda")
+    sim = run_closed_loop(plant, ctrl, sim_duration=3.0, dt=dt,
+                          measurement_model=OutputMap(Cf, dev),
+                          output_model=OutputMap(Hf, dev))
+    return sim, ticks, model
+
+
+def phase_golden(card, dev):
+    """Phase 19: the golden chain loop in f64 on the card through kernel 2,
+    held to tests/golden/closed_loop_chain.npz at the golden test's
+    tolerances; kernel 2 held to its plain version on its first call of
+    each shape and table."""
+    reset_counts()
+    with recording(select_ops, "_launch", clone=1) as sel:
+        sim, ticks, model = golden_chain_loop(dev)
+    counts = read_counts()
+    check(counts["tpwl_select"] > 0 and all(
+        counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+        f"golden chain: launches {counts}")
+    out = tick_stats("golden chain", ticks, counts, len(sim["t"]), card)
+    ref = np.load(GOLDEN_CHAIN)
+    for k, (rtol, atol) in (("z", GOLDEN_Z_TOL), ("u", GOLDEN_U_TOL)):
+        got, want = sim[k], ref[k]
+        check(got.shape == want.shape, f"golden chain: {k} {got.shape}")
+        err = np.abs(got - want)
+        lim = atol + rtol * np.abs(want)
+        out[f"{k}_max_abs_err"] = float(err.max())
+        out[f"{k}_worst_over_limit"] = float((err / lim).max())
+        print(f"[golden chain] {k} against the golden fixture: max abs "
+              f"difference {err.max():.3e}, worst {out[f'{k}_worst_over_limit']:.3e}"
+              f" of the limit (rtol {rtol}, atol {atol})")
+        check(bool((err <= lim).all()),
+              f"golden chain: {k} misses the golden at step "
+              f"{int(np.argmax((err > lim).any(axis=-1)))}")
+    out["select"] = hold_path_selects("golden chain", model, sel)
+    return out
+
+
+def campaign_controller(model, dev, N=CAMPAIGN_N):
+    """The Diamond campaign's real-time MPC (examples/diamond_tet_
+    campaign.py:158-190, tasks/recipes.py:212-268) on a TPWL model:
+    GuSTOService(TPWLGuSTO, N, dt=0.01, Qz = diag(100, 100, 0), R = 1e-5 I,
+    U = [0, 1500]^4, CAMPAIGN_GUSTO, in the model's dtype), the EKF with
+    W = diag(dx_char +
+    1e-8), V = 0.1 I, scp(N_replan=2, mpc=True, feedback=True) with a DARE
+    gain at every dictionary point; the figure-8 about the rest output."""
+    dt = CAMPAIGN_DT
+    Qz, R = np.diag([100.0, 100.0, 0.0]), 1e-5 * np.eye(4)
+    tt, z_t = campaign_target(to_numpy(model.z_ref))
+    svc = GuSTOService(
+        TPWLGuSTO(model), N, dt, Qz, R,
+        to_numpy(model.rom.project_x(model.rom.x_ref)).astype(float),
+        t=tt, z=to_numpy(model.zfyf_to_zy(zf=z_t)).astype(float),
+        U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
+        dtype=model.q.dtype, **CAMPAIGN_GUSTO)
+    H = to_numpy(model.H).astype(float)
+    dx = to_numpy(model.get_characteristic_dx(dt)).astype(float)
+    obs = DiscreteEKFObserver(model, W=np.diag(dx + 1e-8),
+                              V=0.1 * np.eye(model.C.shape[0]))
+    return scp(model, QuadraticCost(Q=H.T @ Qz @ H, R=R), dt, N_replan=2,
+               observer=obs, delay=CAMPAIGN_DELAY, wait=True,
+               solver_service=svc, mpc=True, feedback=True)
+
+
+def campaign_target(z_eq):
+    """The campaign's figure-8 about the rest output z_eq (examples/
+    diamond_tet_campaign.py:159-167): (t, z)."""
+    tt = np.linspace(0, 10.0, 1000)
+    th = np.linspace(0, 2 * np.pi, 1000)
+    z = np.tile(np.asarray(z_eq, float), (1000, 1))
+    z[:, 0] += -20.0 * np.sin(th) - 5.5
+    z[:, 1] += 10.0 * np.sin(2 * th) + 1.5
+    return tt, z
+
+
+def campaign_loop(ctrl, plant_model, dev, n_ticks, Cf, Hf):
+    """ctrl against the lifted plant for n_ticks at dt=0.01 through
+    run_closed_loop, commands clamped to [0, 1500]; (sim data, timed
+    ticks)."""
+    ticks = timed_ticks(ctrl, sync=torch.device(dev).type == "cuda")
+    sim = run_closed_loop(LiftedPlant(plant_model), ctrl,
+                          sim_duration=n_ticks * CAMPAIGN_DT, dt=CAMPAIGN_DT,
+                          measurement_model=OutputMap(Cf, dev),
+                          output_model=OutputMap(Hf, dev),
+                          u_limits=(np.zeros(4), 1500.0 * np.ones(4)))
+    check(np.isfinite(sim["u"]).all() and np.isfinite(sim["z"]).all(),
+          "campaign loop: non-finite logs")
+    return sim, ticks
+
+
+def loop_rel_diff(got, ref):
+    """max over z and u of rel_diff (max abs difference over max(|ref|,
+    1))."""
+    return max(rel_diff(got["z"], ref["z"]), rel_diff(got["u"], ref["u"]))
+
+
+def phase_campaign(model64, model, model_cpu, Cf, Hf, card, dev):
+    """Phase 20: the campaign's closed loop at full width (P=1087, n_x=60,
+    the 9768-dim lifted plant in f64), CAMPAIGN_DELAY then CAMPAIGN_TICKS
+    ticks: f32 on the card (timed, kernel 2 recorded, held and timed at
+    B=1), f64 on the card and f64 on the CPU; a profiler pass."""
+    n_ticks = CAMPAIGN_TICKS + int(round(CAMPAIGN_DELAY / CAMPAIGN_DT))
+    out, sims = {}, {}
+    for name, mdl, plant, d in (("f32", model, model64, dev),
+                                ("f64", model64, model64, dev),
+                                ("cpu", model_cpu, model_cpu, "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl = campaign_controller(mdl, d)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        with recording(select_ops, "_launch", clone=1) as sel:
+            sim, ticks = campaign_loop(ctrl, plant, d, n_ticks, Cf, Hf)
+        counts = read_counts()
+        sims[name] = (sim, ctrl)
+        if name == "cpu":
+            continue
+        check(counts["tpwl_select"] > 0 and all(
+            counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+            f"campaign {name}: launches {counts}")
+        rec = tick_stats(f"campaign {name}", ticks, counts, n_ticks, card)
+        rec.update(setup_s=setup_s, solves=len(ctrl.solve_times),
+                   plan_rejects=int(ctrl.GuSTO.gusto.plan_rejects))
+        # the controller's launches on its tables, the plant's on its own
+        for who, m in (("controller", mdl), ("plant", plant)):
+            calls = [a for a in sel if a[1] is m.q]
+            rec[f"select {who}"] = hold_path_selects(
+                f"campaign {name} {who}", m, calls)
+        if name == "f32":
+            x1 = next(a for a in sel if a[0].shape[0] == 1 and a[1] is mdl.q)
+            rec["select_row"] = select_row("campaign tick", (
+                x1[0],) + tuple(x1[1:8]), 0, card)
+            rec["select_row"]["launches"] = counts["tpwl_select"]
+        out[name] = rec
+    ref = sims["cpu"][0]
+    for name, tol in (("f64", F64_CPU_AGREE_TOL), ("f32", CAMPAIGN_F32_TOL)):
+        d = loop_rel_diff(sims[name][0], ref)
+        out[name]["cpu_rel_diff"] = d
+        print(f"[campaign] {name} card vs f64 CPU: z and u rel difference "
+              f"{d:.3e} (tol {tol})")
+        check(d <= tol, f"campaign {name}: card vs CPU difference {d}")
+    K32, K64 = sims["f32"][1].K, sims["f64"][1].K
+    out["f32_gain_rel_diff"] = float(np.abs(K32 - K64).max()
+                                     / np.abs(K64).max())
+    print(f"[campaign] f32 DARE gains against f64 (1087 points, R = 1e-5 I):"
+          f" max abs difference over max |K| {out['f32_gain_rel_diff']:.3e}")
+    # where the device time of a loop goes: a fresh f32 controller's loop
+    # timed, then another's under the profiler
+    ctrl = campaign_controller(model, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    campaign_loop(ctrl, model64, dev, n_ticks, Cf, Hf)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    ctrl = campaign_controller(model, dev)
+    out["profile"] = profile_device(
+        "campaign f32 loop",
+        lambda: campaign_loop(ctrl, model64, dev, n_ticks, Cf, Hf), wall)
+    out["profile"]["device_ops_a_tick"] = (
+        out["profile"]["device_kernel_launches"] / n_ticks)
+    out["loop_ms"] = wall
+    out["launches"] = out["f32"]["launches"]
+    return out
+
+
+def policy_runs(tag, make, model64, model_cpu, dev, Cf, Hf, card):
+    """A policy (make(model, device) -> controller) against the lifted
+    plant for POLICY_TICKS after CAMPAIGN_DELAY, in f64 on the card (its
+    set-up and policy computations timed) and on the CPU; commands and
+    outputs held within F64_CPU_AGREE_TOL."""
+    n_ticks = POLICY_TICKS + int(round(CAMPAIGN_DELAY / CAMPAIGN_DT))
+    out, sims = {}, {}
+    for name, mdl, d in (("f64", model64, dev), ("cpu", model_cpu, "cpu")):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl = make(mdl, d)
+        torch.cuda.synchronize()
+        setup_ms = 1e3 * (time.perf_counter() - t0)
+        setup_counts = read_counts()
+        policy_ms, real = [], ctrl.compute_policy
+
+        def timed_policy(*a, _real=real, _ms=policy_ms):
+            torch.cuda.synchronize()
+            t1, k1 = time.perf_counter(), tpwl_select.launches
+            r = _real(*a)
+            torch.cuda.synchronize()
+            _ms.append((1e3 * (time.perf_counter() - t1),
+                        tpwl_select.launches - k1))
+            return r
+
+        ctrl.compute_policy = timed_policy
+        reset_counts()
+        sim, ticks = campaign_loop(ctrl, mdl, d, n_ticks, Cf, Hf)
+        counts = read_counts()
+        sims[name] = sim
+        if name == "cpu":
+            continue
+        check(counts["tpwl_select"] >= n_ticks and all(
+            counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+            f"{tag}: launches {counts}")
+        # TrajTracking and the setpoint LQRs compute their policy in the
+        # constructor, ilqr at its first tick after the delay
+        policy_ms = [(t, k) for t, k in policy_ms if k or t > 0.05] or [
+            (setup_ms, setup_counts["tpwl_select"])]
+        out.update(setup_ms=setup_ms, launches=counts,
+                   policy_ms=[t for t, _ in policy_ms],
+                   policy_selects=[k for _, k in policy_ms],
+                   tick_ms=float(np.median([t["ms"] for t in ticks])),
+                   ctrl=ctrl)
+        print(f"[{tag}] f64: the policy computed in "
+              f"{out['policy_ms'][0]:.1f} ms with {out['policy_selects'][0]}"
+              f" launches of kernel 2 (set-up {setup_ms:.1f} ms), "
+              f"{out['tick_ms']:.2f} ms a tick (median); launches over "
+              f"{n_ticks} ticks {counts} [{card}]")
+    d = loop_rel_diff(sims["f64"], sims["cpu"])
+    out["cpu_rel_diff"] = d
+    print(f"[{tag}] f64 card vs f64 CPU: z and u rel difference {d:.3e} "
+          f"(tol {F64_CPU_AGREE_TOL})")
+    check(d <= F64_CPU_AGREE_TOL, f"{tag}: card vs CPU difference {d}")
+    return out
+
+
+def phase_policies(model64, model_cpu, Cf, Hf, card, dev):
+    """Phase 21: ilqr (tf = 0.2 s, 20 steps, iLQRConfig defaults, the
+    recipe's Qz = diag(100, 100, 0), R = 1e-2 I, Qf = 0; tasks/recipes.py:
+    278-300), TrajTracking along a rollout of the dictionary, StateDLQR
+    and StateCLQR at a dictionary point, on the campaign model and the
+    lifted plant."""
+    dt = CAMPAIGN_DT
+    H = to_numpy(model64.H).astype(float)
+    Qz = np.diag([100.0, 100.0, 0.0])
+    tf = ILQR_STEPS * dt
+    t_traj = dt * np.arange(ILQR_STEPS + 1)
+    tt, z8 = campaign_target(to_numpy(model64.z_ref))
+    z_traj = np.stack([np.interp(t_traj, tt, z8[:, j]) for j in range(3)], 1)
+    # a dynamically feasible state trajectory: the dictionary rolled out
+    # from the reference under smooth cable tensions
+    u_traj = np.zeros((ILQR_STEPS + 1, 4))
+    u_traj[:, 0] = 400.0 * (1 - np.cos(2 * np.pi * t_traj / tf)) / 2
+    u_traj[:, 2] = 200.0 * (1 - np.cos(2 * np.pi * t_traj / tf)) / 2
+    x_traj = to_numpy(model_cpu.rollout(np.zeros(model64.state_dim),
+                                        u_traj[:-1], dt)[0])
+    i = 100
+    x_set = to_numpy(torch.cat([model_cpu.v[i], model_cpu.q[i]]))
+    setpoint = dict(x=x_set, u=to_numpy(model_cpu.u[i]),
+                    A=to_numpy(model_cpu.A_c[i]),
+                    B=to_numpy(model_cpu.B_c[i]))
+    reg = QuadraticCost(Q=H.T @ Qz @ H + 1e-3 * np.eye(60),
+                        R=1e-2 * np.eye(4))
+    makers = {
+        "ilqr": lambda m, d: ilqr(
+            m, QuadraticCost(Q=Qz, R=1e-2 * np.eye(4), Qf=np.zeros((3, 3))),
+            Target(t=t_traj, z=z_traj, Hf=Hf), dt=dt, delay=CAMPAIGN_DELAY,
+            tf=tf),
+        "traj_tracking": lambda m, d: TrajTracking(
+            m, reg, Target(t=t_traj, x=x_traj, u=u_traj), dt=dt,
+            delay=CAMPAIGN_DELAY),
+        "state_dlqr": lambda m, d: StateDLQR(m, reg, Target(**setpoint),
+                                             dt=dt, delay=CAMPAIGN_DELAY),
+        "state_clqr": lambda m, d: StateCLQR(m, reg, Target(**setpoint),
+                                             dt=dt, delay=CAMPAIGN_DELAY),
+    }
+    out = {}
+    for name, make in makers.items():
+        if name == "ilqr":
+            make = counting_ilqr(make)
+        rec = policy_runs(f"policy {name}", make, model64, model_cpu, dev,
+                          Cf, Hf, card)
+        ctrl = rec.pop("ctrl")
+        if name == "ilqr":
+            n_it, n_fw = ctrl.policy.iterations, ctrl.policy.forward_passes
+            sel = rec["policy_selects"][0]
+            rec.update(iterations=n_it, forward_passes=n_fw,
+                       selects_an_iteration=sel / max(n_it, 1))
+            print(f"[policy ilqr] {n_it} iterations (backward passes), "
+                  f"{n_fw} forward passes of {ILQR_STEPS} steps, kernel 2 "
+                  f"{sel} launches in the policy computation: "
+                  f"{rec['selects_an_iteration']:.1f} an iteration (one a "
+                  f"forward step, B=1); {rec['policy_ms'][0]:.1f} ms")
+        out[name] = rec
+    return out
+
+
+def counting_ilqr(make):
+    """make(m, d) whose iLQR counts its backward and forward passes in
+    .iterations and .forward_passes."""
+    def wrapped(m, d):
+        c = make(m, d)
+        pol = c.policy
+        pol.iterations = pol.forward_passes = 0
+        fw, bw = pol._forward, pol._run_backward
+
+        def forward(*a):
+            pol.forward_passes += 1
+            return fw(*a)
+
+        def backward(*a):
+            pol.iterations += 1
+            return bw(*a)
+
+        pol._forward, pol._run_backward = forward, backward
+        return c
+
+    return wrapped
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -2022,6 +2515,17 @@ def main():
     rec["koopman"] = phase_koopman(model64, card, dev)
     torch.cuda.empty_cache()
 
+    # 19.-21. the host orchestration layer: the golden chain loop, the
+    # campaign's closed loop, the other policies
+    rec["golden_chain"] = phase_golden(card, dev)
+    model_cpu = from_tpwl_dict(
+        ARTIFACT, params={"dist_weights": {"q": 10.0, "v": 1.0}}, Cf=Cf,
+        Hf=Hf, discr_method="be", device="cpu").to(dtype=torch.float64)
+    rec["campaign_loop"] = phase_campaign(model64, model, model_cpu, Cf, Hf,
+                                          card, dev)
+    rec["policies"] = phase_policies(model64, model_cpu, Cf, Hf, card, dev)
+    torch.cuda.empty_cache()
+
     k2 = rec["tpwl_select"]["plan"]
     paths = {"condensed": rec["condensed"]["launches"],
              "path_a": rec["path_a"]["launches"],
@@ -2046,7 +2550,12 @@ def main():
              "rompc": rec["rompc"]["launches"],
              "rompc_f64": rec["rompc"]["f64"]["launches"],
              "koopman": rec["koopman"]["launches"],
-             "koopman_f64": rec["koopman"]["f64"]["launches"]}
+             "koopman_f64": rec["koopman"]["f64"]["launches"],
+             "golden_chain": rec["golden_chain"]["launches"],
+             "campaign_loop": rec["campaign_loop"]["launches"],
+             "campaign_loop_f64": rec["campaign_loop"]["f64"]["launches"],
+             **{f"policy_{k}": v["launches"]
+                for k, v in rec["policies"].items()}}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -2101,6 +2610,12 @@ def main():
         "tpwl_select", "pallas_tpwl.py:24", "gusto_stage_diamond",
         max(v["max_abs_err"] for v in sel.values()),
         rec["gusto_stage"]["select_row"]))
+    # kernel 2 at a tick of the campaign's closed loop (phase 20)
+    r = rec["campaign_loop"]["f32"]
+    kernels.append(entry(
+        "tpwl_select", "pallas_tpwl.py:24", "campaign_loop",
+        max(v["max_abs_err"] for v in r["select controller"].values()),
+        r["select_row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -2111,7 +2626,8 @@ def main():
                           rec["ssm_sparse"]["kernel_row"],
                           rec["rompc"]["kernel_row"],
                           rec["koopman"]["kernel_row"],
-                          rec["gusto_stage"]["select_row"]]
+                          rec["gusto_stage"]["select_row"],
+                          rec["campaign_loop"]["f32"]["select_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

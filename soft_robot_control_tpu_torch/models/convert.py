@@ -7,8 +7,10 @@ dict of numpy arrays, with the POD basis as the dict {"U", "q_ref",
 "v_ref"} under "rom" (the JAX POD's `get_info()`), and hands that dict to
 `model_from_arrays`. An SSMModel goes the same way through
 `ssm_model_arrays` and `ssm_model_from_arrays`, a KoopmanModel through
-`koopman_model_arrays` and `koopman_model_from_dict`. This module itself
-imports nothing of JAX.
+`koopman_model_arrays` and `koopman_model_from_dict`, a FEMSurrogate plant
+through `surrogate_arrays` and `surrogate_from_arrays`. `flatten_arrays`
+and `unflatten_arrays` carry such nested dicts through an `.npz` file.
+This module itself imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from soft_robot_control_tpu_torch.models.koopman import (KoopmanModel,
 from soft_robot_control_tpu_torch.models.ssm import SSMModel
 from soft_robot_control_tpu_torch.models.tpwl import TPWLModel
 from soft_robot_control_tpu_torch.rom.pod import POD
+from soft_robot_control_tpu_torch.sim.fem_surrogate import FEMSurrogate
 
 _ARRAYS = ("q", "v", "u", "A_c", "B_c", "d_c", "A_d", "B_d", "d_d", "C",
            "y_ref", "H", "z_ref")
@@ -56,7 +59,7 @@ def model_from_arrays(arrays: dict, device="cuda") -> TPWLModel:
                      dist_w_v=arrays["dist_w_v"], beta=arrays.get("beta"),
                      discr_method=arrays["discr_method"],
                      tpwl_method=arrays["tpwl_method"],
-                     pre_discretized_dt=arrays["pre_discretized_dt"],
+                     pre_discretized_dt=arrays.get("pre_discretized_dt"),
                      device=device, **kw)
 
 
@@ -110,3 +113,51 @@ def koopman_model_from_dict(arrays: dict, dtype=torch.float64,
                Ts=a["Ts"], scale=ScaleRows(a["scale"]), dmd=a["DMD"],
                dtype=dtype, device=device)
     return obj
+
+
+_SURROGATE = ("K", "m_node", "alpha", "beta", "gamma", "q_rest", "H")
+
+
+def surrogate_arrays(plant) -> dict:
+    """The dict `surrogate_from_arrays` takes, from any object with the
+    FEMSurrogate attributes (the JAX plant or this package's): K, q_rest
+    and H as numpy arrays, the four coefficients as floats."""
+    out = {k: _np(getattr(plant, k)) for k in _SURROGATE}
+    for k in ("m_node", "alpha", "beta", "gamma"):
+        out[k] = float(out[k])
+    return out
+
+
+def surrogate_from_arrays(arrays: dict, device="cuda") -> FEMSurrogate:
+    """This package's FEMSurrogate from a plant's arrays (see
+    `surrogate_arrays`), on `device`."""
+    return FEMSurrogate(*(arrays[k] for k in _SURROGATE), device=device)
+
+
+def flatten_arrays(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of arrays, numbers and strings as one flat dict with
+    "/"-joined keys, which `np.savez` stores without pickling; None values
+    are left out."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(flatten_arrays(v, f"{prefix}{k}/"))
+        elif v is not None:
+            flat[prefix + k] = np.asarray(v)
+    return flat
+
+
+def unflatten_arrays(flat) -> dict:
+    """The nested dict of `flatten_arrays`' output (or of the `np.load` of
+    its `.npz`): 0-d arrays back to Python numbers and strings."""
+    tree = {}
+    for key in flat:
+        v = np.asarray(flat[key])
+        if v.ndim == 0:
+            v = v.item()
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree

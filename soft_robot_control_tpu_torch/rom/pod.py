@@ -1,9 +1,20 @@
-"""POD reduced basis: affine projection x_r = U^T (x_f - x_ref) on the two
+"""POD reduced basis (sofacontrol/mor/pod.py), online part: affine
+projection x_r = U^T (x_f - x_ref) and lift x_f = U x_r + x_ref on the two
 halves of the packed state x = [v; q] (the block basis kron(I_2, U) is
-never materialized), and output-matrix projection H = Hf V."""
+never materialized), matrix projection U^T M U, output-matrix projection
+H = Hf V; `compute_POD` (the SVD and the energy rule) and `load_POD`.
+
+Every map takes any leading batch axes and computes in the promoted dtype
+of its input and of U. The offline pipeline (snapshots, preprocessing,
+`run_POD`) is not ported yet, so this subpackage re-exports nothing.
+"""
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
+import numpy as np
 import torch
 
 from soft_robot_control_tpu_torch.core.packing import qv2x
@@ -34,21 +45,104 @@ class POD:
     def full_dim(self) -> int:
         return self.U.shape[0]
 
+    def get_info(self) -> dict:
+        return {"q_ref": self.q_ref.cpu().numpy(),
+                "v_ref": self.v_ref.cpu().numpy(),
+                "U": self.U.cpu().numpy(), "type": "POD"}
+
+    def _cast(self, a, *refs):
+        """a as a tensor on U's device, and U and refs, all in the
+        promoted dtype of a and U."""
+        a = torch.as_tensor(a, device=self.U.device)
+        dt = torch.promote_types(a.dtype, self.U.dtype)
+        return (a.to(dt), self.U.to(dt)) + tuple(r.to(dt) for r in refs)
+
+    # reduced -> full (lift); compute_FO_state (mor/pod.py:22-37)
+    def lift_q(self, q):
+        q, U, q_ref = self._cast(q, self.q_ref)
+        return q @ U.T + q_ref
+
+    def lift_v(self, v):
+        v, U, v_ref = self._cast(v, self.v_ref)
+        return v @ U.T + v_ref
+
+    def lift_x(self, x):
+        r = self.rom_dim
+        x, U, q_ref, v_ref = self._cast(x, self.q_ref, self.v_ref)
+        v = x[..., :r] @ U.T + v_ref
+        q = x[..., r:] @ U.T + q_ref
+        return qv2x(q, v)
+
+    # full -> reduced (project); compute_RO_state (mor/pod.py:39-54)
+    def project_q(self, qf):
+        qf, U, q_ref = self._cast(qf, self.q_ref)
+        return (qf - q_ref) @ U
+
+    def project_v(self, vf):
+        vf, U, v_ref = self._cast(vf, self.v_ref)
+        return (vf - v_ref) @ U
+
     def project_x(self, xf):
         """Full -> reduced state, (..., 2 n_f) -> (..., 2 r)."""
         n = self.full_dim
-        xf = torch.as_tensor(xf, device=self.U.device)
-        dt = torch.promote_types(xf.dtype, self.U.dtype)
-        U = self.U.to(dt)
-        v = (xf[..., :n].to(dt) - self.v_ref.to(dt)) @ U
-        q = (xf[..., n:].to(dt) - self.q_ref.to(dt)) @ U
+        xf, U, q_ref, v_ref = self._cast(xf, self.q_ref, self.v_ref)
+        v = (xf[..., :n] - v_ref) @ U
+        q = (xf[..., n:] - q_ref) @ U
         return qv2x(q, v)
+
+    # matrix projection; compute_RO_matrix (mor/pod.py:56-72)
+    def project_matrix(self, M, left: bool = False, right: bool = False):
+        M, U = self._cast(M)
+        if (left and right) or (not left and not right):
+            return U.T @ M @ U
+        if left:
+            return U.T @ M
+        return M @ U
+
+    def project_block_matrix(self, Mf):
+        """Project a full-state matrix Mf ((2n_f, 2n_f), or (n_rows, 2n_f)
+        acting on x = [v; q]) with the block basis V = kron(I2, U): V^T Mf
+        V, or Mf V, without materializing V."""
+        n = self.full_dim
+        Mf, U = self._cast(Mf)
+        MV = torch.cat((Mf[..., :n] @ U, Mf[..., n:] @ U), dim=-1)
+        if Mf.shape[0] == 2 * n:
+            return torch.cat((U.T @ MV[:n], U.T @ MV[n:]), dim=0)
+        return MV
 
     def project_output_matrix(self, Hf):
         """H = Hf V for a full-order output matrix Hf (n_z, 2 n_f), in the
         promoted dtype of Hf and U."""
         n = self.full_dim
-        Hf = torch.as_tensor(Hf, device=self.U.device)
-        dt = torch.promote_types(Hf.dtype, self.U.dtype)
-        U = self.U.to(dt)
-        return torch.cat((Hf[:, :n].to(dt) @ U, Hf[:, n:].to(dt) @ U), dim=1)
+        Hf, U = self._cast(Hf)
+        return torch.cat((Hf[:, :n] @ U, Hf[:, n:] @ U), dim=1)
+
+
+def compute_POD(snapshots: np.ndarray, tol: float,
+                rom_dim: Optional[int] = None):
+    """SVD-based POD of snapshots (n_f, n_snap), in numpy on the host.
+
+    Keeps the smallest r >= 1 whose discarded singular-value energy is
+    <= tol, the reference's loop (mor/pod.py:190-200), or r = rom_dim.
+    Returns (U_full, U, r, S).
+    """
+    U_full, S, _ = np.linalg.svd(snapshots, full_matrices=False)
+    if rom_dim is not None:
+        r = int(rom_dim)
+    else:
+        s2 = S**2
+        tail = np.cumsum(s2[::-1])[::-1] / np.sum(s2)  # sum(s2[i:]) / sum
+        ok = np.nonzero(tail <= tol)[0]
+        candidates = ok[ok >= 1]
+        r = int(candidates[0]) if candidates.size else len(S)
+    return U_full, U_full[:, :r], r, S
+
+
+def load_POD(POD_file: str, device="cuda") -> POD:
+    """Load a POD basis from a reference-format pickle (mor/pod.py:93-107)
+    onto `device`."""
+    from soft_robot_control_tpu_torch.utils.io import load_data
+
+    if not os.path.isfile(POD_file):
+        raise RuntimeError("POD file specified is not a valid file")
+    return POD(load_data(POD_file)["POD_info"], device=device)

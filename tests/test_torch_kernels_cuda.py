@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import (CAMPAIGN_PARAMS, SSM_ARTIFACTS,  # noqa: F401
-                           campaign_dict, campaign_output_maps, cuda_device,
-                           ssm_targets)
+from torch_helpers import (CAMPAIGN_PARAMS, GOLDEN_CHAIN,  # noqa: F401
+                           SSM_ARTIFACTS, LiftedPlant, TLin, campaign_dict,
+                           campaign_output_maps, campaign_scp, cuda_device,
+                           golden_loop, ssm_targets)
 
 from soft_robot_control_tpu_torch.control import batch_mpc
 from soft_robot_control_tpu_torch.control.batch_mpc import (BatchMPC,
@@ -38,6 +39,7 @@ from soft_robot_control_tpu_torch.ops.tpwl_select import (
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv
 from soft_robot_control_tpu_torch.scp import gusto_jit
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit
+from soft_robot_control_tpu_torch.sim.closed_loop import run_closed_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -706,3 +708,44 @@ def test_stage_locp_on_the_card_matches_the_cpu(cuda_device, kkt_solver,
     ref = out["cpu"]
     assert np.abs(out[str(cuda_device)] - ref).max() <= \
         1e-8 * max(np.abs(ref).max(), 1.0)
+
+
+def test_golden_closed_loop_on_the_card(cuda_device):
+    """The golden closed loop (tests/test_golden.py's settings on the
+    committed chain fixture) in f64 on the card: z and u meet
+    tests/golden/closed_loop_chain.npz at the golden test's tolerances,
+    through kernel 2 and no other kernel."""
+    for w in (admm_batched, tpwl_select, admm_stream, admm_cluster,
+              admm_single):
+        w.launches = 0
+    z, u, _ = golden_loop(cuda_device)
+    assert tpwl_select.launches > 0
+    assert admm_batched.launches == admm_stream.launches == 0
+    assert admm_cluster.launches == admm_single.launches == 0
+    ref = np.load(GOLDEN_CHAIN)
+    np.testing.assert_allclose(z, ref["z"], rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(u, ref["u"], rtol=1e-5, atol=1e-8)
+
+
+def test_campaign_scp_on_the_card_matches_the_cpu(cuda_device):
+    """The campaign's real-time scp controller (torch_helpers.campaign_scp)
+    at N=5 on a 64-point subset of the dictionary at full width, the
+    lifted dictionary as the plant, a 2-tick delay then 8 ticks, in f64 on
+    the card and on the CPU: logged z and u within 1e-6 of their scale;
+    kernel 2 launched on the card."""
+    Cf, Hf = campaign_output_maps()
+    data = campaign_dict(np.arange(0, 1087, 17)[:64])
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        model = from_tpwl_dict(data, params=CAMPAIGN_PARAMS, Cf=Cf, Hf=Hf,
+                               discr_method="be", device=dev)
+        tpwl_select.launches = 0
+        sim = run_closed_loop(
+            LiftedPlant(model), campaign_scp(model, N=5), 0.1, 0.01,
+            measurement_model=TLin(Cf, dev), output_model=TLin(Hf, dev),
+            u_limits=(np.zeros(4), 1500.0 * np.ones(4)))
+        out[str(dev)] = (sim["z"], sim["u"], tpwl_select.launches)
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    assert card[2] > 0 and cpu[2] == 0
+    for got, ref in zip(card[:2], cpu[:2]):
+        assert np.abs(got - ref).max() <= 1e-6 * max(np.abs(ref).max(), 1.0)

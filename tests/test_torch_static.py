@@ -63,7 +63,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/control/rompc.py",
             "soft_robot_control_tpu_torch/control/policies.py",
             "soft_robot_control_tpu_torch/models/koopman.py",
-            "soft_robot_control_tpu_torch/control/koopman.py"} <= names
+            "soft_robot_control_tpu_torch/control/koopman.py",
+            "soft_robot_control_tpu_torch/estimators/full_state.py",
+            "soft_robot_control_tpu_torch/estimators/ekf.py",
+            "soft_robot_control_tpu_torch/lqr/tvlqr.py",
+            "soft_robot_control_tpu_torch/lqr/ilqr.py",
+            "soft_robot_control_tpu_torch/sim/fem_surrogate.py",
+            "soft_robot_control_tpu_torch/sim/closed_loop.py",
+            "soft_robot_control_tpu_torch/control/mpc.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
     assert not {f: r for f, r in bad.items() if r}
@@ -97,6 +104,10 @@ def _entry_points():
     from soft_robot_control_tpu_torch.models.koopman import (
         koopman_model_from_arrays, train_edmd)
     from soft_robot_control_tpu_torch.control.koopman import KoopmanMPC
+    from soft_robot_control_tpu_torch.sim.fem_surrogate import (
+        FEMSurrogate, make_chain_robot)
+    from soft_robot_control_tpu_torch.models.convert import (
+        surrogate_from_arrays)
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
@@ -148,6 +159,12 @@ def _entry_points():
         "train_edmd": lambda: train_edmd(np.ones((4, 2)), np.ones((4, 1)),
                                          degree=1),
         "KoopmanMPC": lambda: KoopmanMPC(LTI()),
+        "make_chain_robot": lambda: make_chain_robot(n_nodes=3),
+        "FEMSurrogate": lambda: FEMSurrogate(np.eye(2), 1.0, 0.1, 0.1, 1.0,
+                                             np.zeros(2), np.ones((2, 1))),
+        "surrogate_from_arrays": lambda: surrogate_from_arrays(
+            {"K": np.eye(2), "m_node": 1.0, "alpha": 0.1, "beta": 0.1,
+             "gamma": 1.0, "q_rest": np.zeros(2), "H": np.ones((2, 1))}),
     }
 
 
@@ -162,7 +179,8 @@ def _entry_points():
                                   "StageLOCP", "StageLOCPAdapter",
                                   "DiscreteLuenbergerObserver", "ROMPC",
                                   "KoopmanModel", "train_edmd",
-                                  "KoopmanMPC"])
+                                  "KoopmanMPC", "make_chain_robot",
+                                  "FEMSurrogate", "surrogate_from_arrays"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -177,7 +195,7 @@ def _reexported_names(init_path):
                   if isinstance(node, ast.ImportFrom) for a in node.names)
 
 
-@pytest.mark.parametrize("sub", ["scp", "qp", "core"])
+@pytest.mark.parametrize("sub", ["scp", "qp", "core", "lqr", "estimators"])
 def test_subpackages_reexport_the_jax_names(sub):
     """Each subpackage's re-exports are the JAX subpackage's: for example
     `from soft_robot_control_tpu_torch.scp import GuSTO` works."""
