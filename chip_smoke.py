@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 3. kernel 1 (batched ADMM for QPs that fit a block) against its plain
    PyTorch version on condensed QPs (n=20, m=40, its register form) that
    the port assembles from the Diamond campaign dictionary, and on random
-   QPs of n=100, m=120 (its shared form), in f64 and f32, at B=1024, 1, 3;
+   QPs of n=100, m=120 (its block form), in f64 and f32, at B=1024, 1, 3;
    timed at B=1024 with 25 iterations and with none, whose difference is
    the time of the iterations apart from the loads;
 4. kernel 2 (TPWL select and gather) against its plain version on 5120
@@ -23,9 +23,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (n=380, m=400, one-sided rows with infinite bounds) assembled,
    equilibrated and rho-folded as the fused sparse loop builds them, at
    B=64, 1, 3, each timed at B=1024 in f32: the streaming form
-   (admm_stream, QP re-read from device memory every iteration) in f64 and
-   f32; the cluster-resident form (admm_cluster, QP held across a
-   thread-block cluster's shared memory) in f32 and, since the f64 QP of
+   (admm_stream, a cluster of 8 blocks a QP with the rows that do not fit
+   their shared memory walked in place) in f64 and f32, also timed in f64,
+   its plan and the clusters in flight printed; the cluster-resident form
+   (admm_cluster, QP held across a thread-block cluster's shared memory) in f32 and, since the f64 QP of
    that size fits no cluster, in f64 on the same loop's QPs at horizon 3
    (n=252, m=264). The clusters the card holds at one time are printed,
    and clusters of 6 and of 8 blocks are timed in turns;
@@ -51,12 +52,12 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 10. GuSTO fused, condensed: GuSTOJit(TPWLGuSTO(model), N=5, Qz=100 I,
    R=1e-3 I, cables in [0, 1500], 5 SCP iterations of 50 ADMM iterations,
    K^-1 x-step).solve_batch_fused at B=64 on bench.py:280-291's inputs:
-   kernel 1 (shared form, n=21, m=641, per-QP A) against its plain version
-   on the first iteration's LOCPs and timed, kernel 2 against its plain
-   version on the first iteration's select calls (320 states on the
-   discrete tables, 640 on the continuous ones); one launch of kernel 1 and
-   two of kernel 2 an SCP iteration; solves/s, the converged share, device
-   time by kernel;
+   kernel 1 (block form, n=21, m=641, per-QP A) against its plain version
+   on the first iteration's LOCPs and timed in f32 and f64, kernel 2
+   against its plain version on the first iteration's select calls (320
+   states on the discrete tables, 640 on the continuous ones); one launch
+   of kernel 1 and two of kernel 2 an SCP iteration; solves/s, the
+   converged share, device time by kernel;
 11. GuSTO fused, sparse: the same with formulation="sparse" (n=386,
    m=1126, beyond a cluster): the streaming kernel 3, in f32 and f64;
 12. GuSTO real-time: GuSTO(TPWLGuSTO(model), condensed backend,
@@ -76,7 +77,7 @@ the tolerances stated below.
    I, N=3, dt=0.02, N_replan=2, 50 ADMM iterations).build_fused at B=1024
    for 4 windows from rest, on the seeded circle targets, f32, in both
    formulations (condensed: kernel 1's register form at n=24, m=1; sparse:
-   its shared form at n=48, m=24): kernel 1 against its plain version on
+   its block form at n=48, m=24): kernel 1 against its plain version on
    the first window's launch in f32 and f64, with the f32 rounding ratio;
    exactly one launch of kernel 1 a window and none of the others; the
    f64 card run against the f64 CPU run at B=1024 (outputs about z_ref and
@@ -138,7 +139,9 @@ the tolerances stated below.
    at a dictionary point; ms a policy computation.
 
 Every launch count is set to 0 just before a path is driven and read just
-after. The last three lines of standard output are the per-kernel JSON
+after. Each timed kernel row prints the kernel's earlier time on the card
+from PERF.md beside this run's. The last three lines of standard output are
+the per-kernel JSON
 record, the card's name and power limit, and {"ok": true, "device":
 {...}}. The full record is also written to build/chip_smoke.json. Without
 a card the script exits non-zero before printing any result.
@@ -191,7 +194,8 @@ from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
 from soft_robot_control_tpu_torch.ops.admm_batched import (  # noqa: E402
     admm_batched, admm_batched_plain, admm_cluster, admm_stream,
-    cluster_max_active, cluster_plan_built)
+    cluster_max_active, cluster_plan_built, stream_max_active,
+    stream_plan_built)
 from soft_robot_control_tpu_torch.ops.admm_single import (  # noqa: E402
     admm_single, admm_single_plain, prepare_single)
 from soft_robot_control_tpu_torch.ops import tpwl_select as select_ops  # noqa: E402,E501
@@ -267,8 +271,10 @@ GUSTO_SPARSE_KERNEL_F32_TOL = 1e-2
 # That limit admits the formulation's rounding; the kernel's own is bounded
 # apart: its f32 result's error against the plain version in f64 on the
 # same inputs, over the plain f32 result's error, measured on an H100 80GB
-# HBM3 at 1.40 (sparse) and 4.08 (condensed: each lane of the shared form
-# sums its 641 rows in one serial walk, the library in blocks)
+# HBM3 at 1.40 (sparse) and 4.08 (condensed) with the earlier designs,
+# whose lanes summed the 641 rows of A^T t in one serial walk where the
+# library sums in blocks, and at 0.88 and 0.67 with the streaming kernel
+# on clusters and kernel 1's block form (row groups, the x-step in f64)
 GUSTO_F32_ROUNDING_RATIO = {"condensed": 8.0, "sparse": 2.0}
 # f32 card runs of the GuSTO and LTI paths against the f64 CPU run: x and u,
 # max abs difference over max(|x|, 1) resp. max(|u|, 1). Measured on an
@@ -292,13 +298,31 @@ SSM_F32_TOL = {"condensed": 2e-2, "sparse": 1.5e-1}
 # Kernel 1 in f32 on these LOCPs: its error against the plain version in
 # f64 on the same inputs within SSM_F32_ROUNDING_RATIO x the plain f32
 # version's (measured on an H100 80GB HBM3 at 0.53-1.98 over both
-# artifacts, formulations and B = 1, 3, 1024), and its difference from the
+# artifacts, formulations and B = 1, 3, 1024 with the earlier warp-per-QP
+# form; 2.03 on the Diamond's sparse LOCPs with the block form summing its
+# x-step in f32, and 0.03-0.70 on the sparse LOCPs with that step in f64,
+# as it now is), and its difference from the
 # plain f32 version within the larger of the raw limit (1e-4 / 1e-3 of the
 # solution's scale) and twice the plain version's own f32 error: the
 # Diamond's LOCPs (K^-1 entries to 1.8e5 with R = 1e-6 I) put the plain
 # version's own f32 error at 0.9-1.4x the raw limit, so no other summation
 # order can meet the raw limit there
 SSM_F32_ROUNDING_RATIO = 2.0
+# Earlier card times of the batched ADMM kernels at the paths' shapes, f32
+# (PERF.md section 6's kernel table, H100 80GB HBM3, 700 W), printed beside
+# this run's: (kernel, B, n, m, iterations) -> (row, ms)
+EARLIER_MS = {
+    ("admm_batched", 1024, 20, 40, 25): ("1", 0.0196),
+    ("admm_batched", 64, 21, 641, 50): ("1b", 0.6931),
+    ("admm_batched", 1, 80, 160, 37): ("1c", 0.3550),
+    ("admm_batched", 1024, 24, 1, 50): ("1d", 0.0354),
+    ("admm_batched", 1024, 48, 24, 50): ("1e", 0.1358),
+    ("admm_batched", 1, 80, 1, 37): ("1f", 0.1212),
+    ("admm_batched", 1, 40, 152, 100): ("1g", 0.5775),
+    ("admm_cluster", 1024, 380, 400, 25): ("3", 6.97),
+    ("admm_stream", 1024, 380, 400, 25): ("3b", 17.39),
+    ("admm_stream", 64, 386, 1126, 50): ("3c", 9.6647),
+    ("admm_single", 1, 380, 400, 50): ("4", 0.269)}
 # The stage LOCP (phase 15): bench.py section 4b's settings
 STAGE_N, STAGE_ITERS, STAGE_RUNS = 200, 100, 3
 # f32 against f64 there, w over its scale: cyclic reduction's explicit
@@ -379,6 +403,17 @@ def clocks():
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
         text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def earlier(kernel, B, n, m, iters, ms):
+    """Print the PERF.md row of a kernel launch's shape beside this run's
+    time, where PERF.md has one. Only printed: the record holds what this
+    run measured."""
+    row = EARLIER_MS.get((kernel, B, n, m, iters))
+    if row is not None:
+        print(f"[{kernel}] B={B} n={n} m={m} {iters} iters: {ms:.4f} ms, "
+              f"earlier {row[1]} ms (PERF.md row {row[0]}; "
+              f"{row[1] / ms:.2f}x)")
 
 
 def bound(bytes_moved, flops):
@@ -555,12 +590,13 @@ def admm_work(B, n, mc, iters):
 
 
 def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
-               cluster_sizes=(), other_size=None):
+               cluster_sizes=(), other_size=None, time_f64=False):
     """A batched ADMM kernel against admm_batched_plain at the batch sizes
     `sizes`, f64 (on mpc64's QPs) and f32 (on mpc's), then timed at B_MAIN
-    in f32, also with no iterations; `other_size` (n, m) repeats the checks
-    and the timing on random QPs of that size; `cluster_sizes` are also
-    timed, in turns, where the wrapper takes a cluster size."""
+    in f32, also with no iterations, and (`time_f64`) in f64 on the same
+    QPs; `other_size` (n, m) repeats the checks and the timing on random
+    QPs of that size; `cluster_sizes` are also timed, in turns, where the
+    wrapper takes a cluster size."""
     name = wrapper.__name__
     out = {}
     for m in (mpc64, mpc):
@@ -589,6 +625,13 @@ def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
           f"an iteration), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}) [{card}; after it SM clock, max, power, temperature: "
           f"{out['clocks']}]")
+    earlier(name, B, n, mc, ITERS, ms)
+    if time_f64:
+        a64 = [t.double() for t in args]
+        out["ms_f64"] = cuda_ms(lambda: wrapper(*a64, ITERS), reps)
+        print(f"[{name}] f64 B={B} n={n} m={mc} {ITERS} iters: kernel "
+              f"{out['ms_f64']:.4f} ms [{card}]")
+        del a64
     if other_size is not None:
         n2, m2 = other_size
         for dt in (torch.float64, torch.float32):
@@ -626,6 +669,19 @@ def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
     return out
 
 
+def stream_plans():
+    """The streaming kernel's plan at its paths' shapes (GuSTO sparse in f32
+    and f64, path A in f64) and the clusters (QPs) the card holds at once."""
+    out = {}
+    for n, m, elem in ((386, 1126, 4), (386, 1126, 8), (380, 400, 8)):
+        plan, active = stream_plan_built(n, m, elem), stream_max_active(
+            n, m, elem)
+        print(f"[admm_stream] n={n} m={m} {8 * elem}-bit: {active} clusters "
+              f"in flight; plan {plan}")
+        out[f"n={n} m={m} elem={elem}"] = dict(plan=plan, max_active=active)
+    return out
+
+
 def phase_single(mpc64, mpc, x_qp, zt, card):
     """The single-QP kernel against admm_single_plain on one sparse QP
     prepared as admm_fixed_single prepares it, f64 and f32, then timed."""
@@ -658,6 +714,7 @@ def phase_single(mpc64, mpc, x_qp, zt, card):
     print(f"[admm_single] f32 n={n} m={mc} {ITERS_B} iters: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}) [{card}]")
+    earlier("admm_single", 1, n, mc, ITERS_B, ms)
     return out
 
 
@@ -940,6 +997,7 @@ def kernel_row(tag, wrapper, args, iters, card, reps):
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}) [{card}; after it SM clock, max, "
           f"power, temperature: {clk}]")
+    earlier(wrapper.__name__, B, n, mc, iters, ms)
     return dict(kernel=wrapper.__name__, B=B, n=n, m=mc, iters=iters, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops, clocks=clk)
@@ -1000,7 +1058,7 @@ def gusto_result(r):
 def phase_gusto_fused(tag, formulation, model64, model, card, tol_f32):
     """GuSTOJit.solve_batch_fused at B=GUSTO_B on the campaign dictionary:
     the path's batched ADMM kernel against its plain version on the first
-    iteration's LOCPs (f64 and f32) and timed, and kernel 2 against its
+    iteration's LOCPs (f64 and f32) and timed in both, and kernel 2 against its
     plain version on the first iteration's select calls (the discrete rows
     at the B*N linearization states, the continuous rows at the 2*B*N
     states of the accuracy ratio); the path's launches (one ADMM launch an
@@ -1026,6 +1084,11 @@ def phase_gusto_fused(tag, formulation, model64, model, card, tol_f32):
         out[key] = compare(kernel.__name__, f"{tag} {key}", got, plain,
                            g.dtype, ADMM_F32_TOL if formulation == "condensed"
                            else GUSTO_SPARSE_KERNEL_F32_TOL, f64_scaled=True)
+        if g.dtype == torch.float64:  # the f64 path's launch, timed
+            out[key]["ms"] = cuda_ms(lambda: kernel(*ka, iters), 10)
+            print(f"[{tag}] {kernel.__name__} f64 B={GUSTO_B} "
+                  f"n={ka[2].shape[1]} m={ka[3].shape[1]} {iters} iters: "
+                  f"kernel {out[key]['ms']:.4f} ms [{card}]")
         if g.dtype == torch.float32:
             # both f32 results against the plain version in f64 on the
             # same (f32) inputs: the kernel's rounding beside the plain's
@@ -2466,7 +2529,8 @@ def main():
     rec["tpwl_select"] = phase_select(model64, model, x_near, card)
     rec["admm_stream"] = phase_admm(
         admm_stream, make_mpc(model64, torch.float64, dev, "A"), mpc_a,
-        x_near, zt, card, (64, 1, 3), SPARSE_F32_TOL, 5)
+        x_near, zt, card, (64, 1, 3), SPARSE_F32_TOL, 5, time_f64=True)
+    rec["admm_stream"]["plans"] = stream_plans()
     rec["admm_cluster"] = phase_admm(
         admm_cluster, make_mpc(model64, torch.float64, dev, "A",
                                horizon=N_F64_CLUSTER), mpc_a,
@@ -2570,6 +2634,8 @@ def main():
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": None}
 
+    ref_of = {"admm_batched": "pallas_admm.py:132",
+              "admm_stream": "pallas_admm.py:94"}
     # library_ms: no single PyTorch call computes a fixed-iteration ADMM
     # or a select-then-gather. tpwl_select's max_abs_err is over the
     # gathered rows where the indices agree; phase 4 fails on any index
@@ -2591,6 +2657,18 @@ def main():
               rec["admm_single"]["float32"]["max_abs_err"],
               rec["admm_single"]),
     ]
+    # the redesigned kernel 1 and kernel 3 on GuSTO's fused paths and the
+    # LTI service step (phases 10, 11, 13)
+    for path, name in (("gusto_condensed", "admm_batched"),
+                       ("gusto_sparse", "admm_stream")):
+        r = rec[path]
+        kernels.append(entry(name, ref_of[name], path,
+                             r[f"float32 B={GUSTO_B}"]["max_abs_err"],
+                             r["kernel_row"]))
+    r = rec["lti"]["pallas"]
+    kernels.append(entry("admm_batched", ref_of["admm_batched"],
+                         "lti_pallas", r["f32 B=1"]["max_abs_err"],
+                         r["kernel_row"]))
     # kernel 1 on the BatchSSMMPC path (phase 14), at its two new shapes
     for form in ("condensed", "sparse"):
         r = rec[f"ssm_{form}"]

@@ -13,58 +13,88 @@
 //
 // What bounds it on an H100: not bytes and not FLOPs. At the main path's
 // n=20, m=40, B=1024, 25 iterations, the inputs are ~5.6 MB (under 2 us at
-// 3.35 TB/s) and the work ~120 MFLOP (under 2 us at 67 TFLOP/s f32). Each
-// iteration is a chain of three dependent mat-vecs of 20-40 terms, so the
-// time is the latency of that chain times the iteration count, unless
-// enough QPs are in flight to cover it.
+// 3.35 TB/s) and the work ~120 MFLOP (under 2 us at 67 TFLOP/s). Each
+// iteration is a chain of three dependent mat-vecs, so the time is the
+// latency of that chain times the iteration count, unless enough QPs are
+// in flight to cover it. Each form below shortens that chain for its
+// shapes.
 //
-// Two forms, chosen by size and element type (admm_batched_form;
+// Two forms, chosen by a rule on (n, m, element size) (admm_batched_form;
 // ops/admm_batched.py batched_form mirrors it):
 //
-// - registers (float32, n <= 32, m <= 64: the condensed LOCP): one warp
-//   per QP, with A, A^T and K^-1 in registers for all iterations,
-//   compile-time sized and fully unrolled. Lane i holds column i of A (for
-//   A^T t) and of K^-1 (row i: it is symmetric), lane j rows j and j + 32
-//   of A (for A x~). Each mat-vec is then 20-64 FMAs on one lane's own
-//   registers, in four independent chains, against a vector that the warp
-//   reads from shared memory as 16-byte broadcasts; only the vectors t,
-//   rhs and x~ cross lanes, through shared memory and __syncwarp. The
-//   chain of an iteration is three such mat-vecs and the row updates, a few
-//   hundred cycles; 1024 QPs are 8 warps an SM. In float64 the three
-//   copies would not fit a lane's 255 registers: float64 QPs take the
-//   shared form.
-// - shared (every other QP that fits a block): one warp per QP; K^-1, A
-//   and the iterates are copied into shared memory once and stay there (the
-//   Pallas kernel's VMEM residency), lane i computes row i of each mat-vec,
-//   and the phases are separated by __syncwarp only. A is stored with an
-//   odd row stride so that both its row and its column reads are free of
-//   bank conflicts; K^-1 is symmetric, so the x-step reads it by columns. A
-//   block holds up to four QPs, fewer when their footprint would pass 227
-//   KB. The launcher refuses (returns -1) when one QP's footprint does not
-//   fit a block's shared memory.
+// - registers (float32, n <= 32, m <= 64: the condensed LOCP and the SSM
+//   LOCP at n=24, m=1): one warp per QP, with A, A^T and K^-1 in registers
+//   for all iterations, compile-time sized and fully unrolled. Lane i holds
+//   column i of A (for A^T t) and of K^-1 (row i: it is symmetric), lane j
+//   rows j and j + 32 of A (for A x~). Each mat-vec is then 20-64 FMAs on
+//   one lane's own registers, in four independent chains, against a vector
+//   that the warp reads from shared memory as 16-byte broadcasts; only the
+//   vectors t, rhs and x~ cross lanes, through shared memory and
+//   __syncwarp. The chain of an iteration is three such mat-vecs and the
+//   row updates, a few hundred cycles; 1024 QPs are 8 warps an SM. In
+//   float64 the three copies would not fit a lane's 255 registers.
+// - block (every other QP that fits a block): one block of up to 1024
+//   threads per QP; K^-1, A and the iterates are copied into shared memory
+//   once and stay there (the Pallas kernel's VMEM residency). A^T t:
+//   thread (g, c) sums column c over the rows g, g + G, ... of A, and n
+//   threads add the G partials; K^-1 x-step: thread i walks column i of
+//   K^-1 (it is symmetric); A x~: a row a thread. Every walk runs in four
+//   interleaved chains (admm_matvec.cuh). A thread's share of an
+//   iteration is then about m / G + G + 2 n multiply-adds and four block
+//   barriers: at GuSTO's condensed LOCP (n=21, m=641, G=32) about 94.
+//   A warp per QP, with lane i walking row i of each mat-vec and all m
+//   rows of A^T t in one serial sum, does 1,100 there; it was slower than
+//   this form at every float32 shape of the port's paths (PERF.md). Threads and G come from the QP's
+//   size, its element size and B (block_threads, block_groups): enough for
+//   a row of A each and for about sqrt(m) row groups, as few as let the
+//   blocks the batch puts on an SM all be resident.
+//   The x-step runs in float64 whatever the QP's type: K^-1 and rhs are
+//   kept in shared memory as float64 (widened exactly), their products
+//   are exact, and x~ is rounded to the QP's type once. On the Diamond
+//   SSM's sparse LOCPs K^-1 reaches 1.8e5 and the float32 sum of its n
+//   terms cancels to x~ of order 1: summed in float32 that step put the
+//   block form's float32 error against float64 at 2.03x the plain
+//   version's (chip_smoke.py phase 14 on an H100; its limit is 2), in
+//   float64 at 0.03x. The other two walks stay in the QP's type; nothing is
+//   rounded to fewer bits than it. rhs and x~ are read 16 bytes a load, so
+//   the wider K^-1 costs little shared-memory bandwidth in all.
 //
-// Any B works, including B = 1.
+// In the block form A is stored with an odd row stride so that both its
+// row and its column reads are free of bank conflicts. The launcher
+// refuses (returns -1) when one QP's footprint does not fit a block's
+// shared memory. Any B works, including B = 1.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "admm_matvec.cuh"
+
 namespace {
 
+using admm::clip;
+
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block may use on Hopper
-constexpr int kQpPerBlock = 4;
+constexpr int kMaxThreads = 1024;
+constexpr int kSMs = 132;            // H100 SXM
+
+enum BatchedForm { kBlock = 0, kRegisters = 1 };
 
 __host__ __device__ inline int a_stride(int n) { return n | 1; }
 
-// elements of one QP's shared-memory region: K^-1 (n*n), A (m*stride),
-// q, w, rhs, x~ (n each), l, u, z, y, t, rho (m each)
-__host__ __device__ inline size_t qp_elems(int n, int m) {
-  return (size_t)n * n + (size_t)m * a_stride(n) + 4 * (size_t)n +
-         6 * (size_t)m;
+// len rounded up to whole 16 bytes of elements of elem_size bytes
+__host__ __device__ inline size_t up16(size_t len, int elem_size) {
+  const size_t w = 16 / elem_size;
+  return (len + w - 1) / w * w;
 }
 
-template <typename T>
-__device__ inline T clip(T x, T lo, T hi) {
-  x = x < lo ? lo : x;
-  return x > hi ? hi : x;
+// bytes of one QP's shared-memory region in the block form, without the
+// partials of A^T t: K^-1 (n*n) and rhs (n) in float64, then x~ (n), A
+// (m*stride), q, w (n each), l, u, z, y, t, rho (m each) in the QP's type;
+// rhs and x~ start on 16 bytes (the walks read them 16 bytes a load)
+__host__ __device__ inline size_t qp_bytes(int n, int m, int elem_size) {
+  return (up16((size_t)n * n, 8) + up16(n, 8)) * sizeof(double) +
+         (up16(n, elem_size) + (size_t)m * a_stride(n) + 2 * (size_t)n +
+          6 * (size_t)m) *
+             (size_t)elem_size;
 }
 
 // Dot product of L of a lane's registers with a vector in shared memory
@@ -160,7 +190,7 @@ __global__ void __launch_bounds__(32) admm_batched_reg_kernel(
 }
 
 // The register form a QP takes (1: padded to n=24, m=48; 2: to n=32,
-// m=64), or 0 where it takes the shared form.
+// m=64), or 0 where it does not take it.
 __host__ __device__ inline int reg_form(int n, int m, int elem_size) {
   if (elem_size != 4) return 0;
   if (n <= 24 && m <= 48) return 1;
@@ -168,87 +198,137 @@ __host__ __device__ inline int reg_form(int n, int m, int elem_size) {
   return 0;
 }
 
-// The shared form: one warp per QP, matrices resident in shared memory.
+// Rows g, g + G, ... below m: the rows of row group g.
+__device__ inline int group_rows(int m, int g, int G) {
+  return g < m ? (m - g + G - 1) / G : 0;
+}
+
+// The block form: one QP a block, matrices resident in shared memory, the
+// mat-vecs split over the block's threads; G > 1 row groups in A^T t.
 template <typename T>
-__global__ void admm_batched_kernel(
+__global__ void __launch_bounds__(kMaxThreads) admm_block_kernel(
     const T* __restrict__ Kinv, const T* __restrict__ A,
     const T* __restrict__ q, const T* __restrict__ l,
     const T* __restrict__ u, const T* __restrict__ rho,
     const T* __restrict__ w0, const T* __restrict__ y0, T* __restrict__ w_out,
-    T* __restrict__ y_out, int B, int n, int m, int iters, T sigma, T alpha) {
+    T* __restrict__ y_out, int n, int m, int iters, T sigma, T alpha,
+    int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long b = (long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= B) return;  // the whole warp leaves; no block barrier follows
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const long b = blockIdx.x;
   const int lda = a_stride(n);
-  T* sK = reinterpret_cast<T*>(smem_raw) + (size_t)warp * qp_elems(n, m);
-  T* sA = sK + (size_t)n * n;
+  double* sK = reinterpret_cast<double*>(smem_raw);  // K^-1, widened
+  double* sr = sK + up16((size_t)n * n, 8);           // rhs, widened
+  T* sx = reinterpret_cast<T*>(sr + up16(n, 8));      // x~
+  T* sA = sx + up16(n, sizeof(T));
   T* sq = sA + (size_t)m * lda;
   T* sw = sq + n;
-  T* sr = sw + n;   // rhs
-  T* sx = sr + n;   // x~
-  T* sl = sx + n;
+  T* sl = sw + n;
   T* su = sl + m;
   T* sz = su + m;
   T* sy = sz + m;
   T* st = sy + m;   // rho z - y
   T* sp = st + m;   // rho
+  T* part = sp + m;  // G partials of A^T t, n each (G > 1)
 
   const T* gK = Kinv + b * n * n;
   const T* gA = A + b * m * n;
-  for (int i = lane; i < n * n; i += 32) sK[i] = gK[i];
-  for (int i = lane; i < m * n; i += 32) {
+  for (int i = tid; i < n * n; i += nthr) sK[i] = (double)gK[i];
+  for (int i = tid; i < m * n; i += nthr) {
     const int r = i / n;
     sA[r * lda + (i - r * n)] = gA[i];
   }
-  for (int i = lane; i < n; i += 32) {
+  for (int i = tid; i < n; i += nthr) {
     sq[i] = q[b * n + i];
     sw[i] = w0[b * n + i];
   }
-  for (int j = lane; j < m; j += 32) {
+  for (int j = tid; j < m; j += nthr) {
     sl[j] = l[b * m + j];
     su[j] = u[b * m + j];
     sy[j] = y0[b * m + j];
     sp[j] = rho[j];
   }
-  __syncwarp();
-  for (int j = lane; j < m; j += 32) {
-    T acc = 0;
-    for (int k = 0; k < n; ++k) acc += sA[j * lda + k] * sw[k];
-    sz[j] = clip(acc, sl[j], su[j]);
+  __syncthreads();
+  for (int j = tid; j < m; j += nthr) {
+    const T z = clip(admm::dot(sA + (size_t)j * lda, 1, sw, 1, n), sl[j],
+                     su[j]);
+    sz[j] = z;
+    st[j] = sp[j] * z - sy[j];
   }
-  __syncwarp();
+  __syncthreads();
 
+  const int g = tid / n, c = tid - g * n;  // A^T t: row group g, column c
+  const int g_rows = group_rows(m, g, G);
   const T one_m_alpha = T(1) - alpha;
   for (int it = 0; it < iters; ++it) {
-    for (int j = lane; j < m; j += 32) st[j] = sp[j] * sz[j] - sy[j];
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) {  // rhs = sigma w - q + A^T t
-      T acc = 0;
-      for (int j = 0; j < m; ++j) acc += sA[j * lda + i] * st[j];
-      sr[i] = sigma * sw[i] - sq[i] + acc;
+    if (G > 1) {  // rhs = sigma w - q + A^T t
+      if (g < G)
+        part[g * n + c] = admm::dot(sA + (size_t)g * lda + c, G * lda,
+                                    st + g, G, g_rows);
+      __syncthreads();
+      for (int i = tid; i < n; i += nthr)
+        sr[i] = (double)(sigma * sw[i] - sq[i] + admm::sum(part + i, n, G));
+    } else {
+      for (int i = tid; i < n; i += nthr)
+        sr[i] = (double)(sigma * sw[i] - sq[i] +
+                         admm::dot(sA + i, lda, st, 1, m));
     }
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) {  // x~ = K^-1 rhs (column read)
-      T acc = 0;
-      for (int k = 0; k < n; ++k) acc += sK[k * n + i] * sr[k];
-      sx[i] = acc;
+    __syncthreads();
+    for (int i = tid; i < n; i += nthr) {  // x~ = K^-1 rhs (column walk)
+      const T x = (T)admm::dot_v(sK + i, n, sr, n);
+      sx[i] = x;
+      sw[i] = alpha * x + one_m_alpha * sw[i];
     }
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) sw[i] = alpha * sx[i] + one_m_alpha * sw[i];
-    for (int j = lane; j < m; j += 32) {
-      T zt = 0;
-      for (int k = 0; k < n; ++k) zt += sA[j * lda + k] * sx[k];
+    __syncthreads();
+    for (int j = tid; j < m; j += nthr) {  // z~ = A x~ and the row updates
+      const T zt = admm::dot_v(sA + (size_t)j * lda, 1, sx, n);
       const T z_rel = alpha * zt + one_m_alpha * sz[j];
       const T z_new = clip(z_rel + sy[j] / sp[j], sl[j], su[j]);
-      sy[j] = sy[j] + sp[j] * (z_rel - z_new);
+      const T y_new = sy[j] + sp[j] * (z_rel - z_new);
+      sy[j] = y_new;
       sz[j] = z_new;
+      st[j] = sp[j] * z_new - y_new;
     }
-    __syncwarp();
+    __syncthreads();
   }
-  for (int i = lane; i < n; i += 32) w_out[b * n + i] = sw[i];
-  for (int j = lane; j < m; j += 32) y_out[b * m + j] = sy[j];
+  for (int i = tid; i < n; i += nthr) w_out[b * n + i] = sw[i];
+  for (int j = tid; j < m; j += nthr) y_out[b * m + j] = sy[j];
+}
+
+// Threads of the block form for B QPs of n variables and m rows in
+// elements of elem_size bytes: a row of A each and n columns in about
+// sqrt(m) row groups, a multiple of 32 from 64 to 1024; and no more than
+// let the blocks that the batch puts on an SM (B / kSMs, or as many as
+// their shared memory allows) be resident together, at the kernel's 64
+// registers a thread (65,536 an SM).
+inline int block_threads(int B, int n, int m, int elem_size) {
+  int groups = 1;
+  while (groups * groups < m) ++groups;
+  int t = admm::round_up_32(n * groups > m ? n * groups : m);
+  const size_t qp = qp_bytes(n, m, elem_size);
+  const int fit = qp < kMaxSmem ? (int)(kMaxSmem / qp) : 1;
+  const int want = B > kSMs ? (B + kSMs - 1) / kSMs : 1;
+  const int per_sm = want < fit ? want : fit;
+  const int cap = (kMaxThreads / per_sm) & ~31;
+  if (t > cap) t = cap;
+  return t < 64 ? 64 : (t > kMaxThreads ? kMaxThreads : t);
+}
+
+// Row groups of the block form's A^T t: as many as `threads` hold, at most
+// m, and no more than the shared memory left beside the QP holds partials.
+inline int block_groups(int n, int m, int threads, int elem_size) {
+  int G = threads / n;
+  if (G > m) G = m;
+  const size_t qp = qp_bytes(n, m, elem_size);
+  const size_t room = qp < kMaxSmem ? kMaxSmem - qp : 0;
+  const size_t fit = room / ((size_t)n * elem_size);
+  if ((size_t)G > fit) G = (int)fit;
+  return G < 1 ? 1 : G;
+}
+
+inline size_t block_bytes(int n, int m, int G, int elem_size) {
+  return qp_bytes(n, m, elem_size) +
+         (G > 1 ? (size_t)G * n * elem_size : 0);
 }
 
 template <int NP, int MP>
@@ -265,54 +345,66 @@ int launch_reg(const float* Kinv, const float* A, const float* q,
 }
 
 template <typename T>
+int launch_block(const T* Kinv, const T* A, const T* q, const T* l,
+                 const T* u, const T* rho, const T* w0, const T* y0,
+                 T* w_out, T* y_out, int B, int n, int m, int iters,
+                 double sigma, double alpha, void* stream) {
+  const int threads = block_threads(B, n, m, sizeof(T));
+  const int G = block_groups(n, m, threads, sizeof(T));
+  const size_t smem = block_bytes(n, m, G, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  admm_block_kernel<T><<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+      Kinv, A, q, l, u, rho, w0, y0, w_out, y_out, n, m, iters, (T)sigma,
+      (T)alpha, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(const T* Kinv, const T* A, const T* q, const T* l, const T* u,
            const T* rho, const T* w0, const T* y0, T* w_out, T* y_out, int B,
-           int n, int m, int iters, double sigma, double alpha,
-           void* stream) {
-  const size_t per = qp_elems(n, m) * sizeof(T);
-  if (per > kMaxSmem) return -1;
+           int n, int m, int iters, double sigma, double alpha, void* stream) {
+  if (qp_bytes(n, m, sizeof(T)) > kMaxSmem) return -1;
   if (B <= 0) return 0;
   if constexpr (sizeof(T) == 4) {
     switch (reg_form(n, m, 4)) {
       case 1:
-        return launch_reg<24, 48>(Kinv, A, q, l, u, rho, w0, y0, w_out,
-                                  y_out, B, n, m, iters, sigma, alpha,
-                                  stream);
+        return launch_reg<24, 48>(Kinv, A, q, l, u, rho, w0, y0, w_out, y_out,
+                                  B, n, m, iters, sigma, alpha, stream);
       case 2:
-        return launch_reg<32, 64>(Kinv, A, q, l, u, rho, w0, y0, w_out,
-                                  y_out, B, n, m, iters, sigma, alpha,
-                                  stream);
+        return launch_reg<32, 64>(Kinv, A, q, l, u, rho, w0, y0, w_out, y_out,
+                                  B, n, m, iters, sigma, alpha, stream);
     }
   }
-  int qpb = kQpPerBlock;
-  while (qpb > 1 && qpb * per > kMaxSmem) --qpb;
-  if (qpb > B) qpb = B;
-  const size_t smem = qpb * per;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_batched_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((B + qpb - 1) / qpb);
-  admm_batched_kernel<T><<<grid, 32 * qpb, smem, (cudaStream_t)stream>>>(
-      Kinv, A, q, l, u, rho, w0, y0, w_out, y_out, B, n, m, iters, (T)sigma,
-      (T)alpha);
-  return (int)cudaGetLastError();
+  return launch_block(Kinv, A, q, l, u, rho, w0, y0, w_out, y_out, B, n, m,
+                      iters, sigma, alpha, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 where a QP of n variables and m rows in elements of elem_size bytes
-// takes the register form, 0 where it takes the shared form.
+// The form of a QP of n variables and m rows in elements of elem_size
+// bytes that fits a block: 0 block, 1 registers.
 int admm_batched_form(int n, int m, int elem_size) {
-  return reg_form(n, m, elem_size) != 0;
+  return reg_form(n, m, elem_size) ? kRegisters : kBlock;
 }
 
-// Shared-memory bytes one QP needs in the shared form; the wrapper
-// dispatches by it.
+// The block form's layout for that batch: out[0] threads a block, out[1]
+// row groups G, out[2] bytes of shared memory a block.
+void admm_batched_block_layout(int B, int n, int m, int elem_size,
+                               int* out) {
+  out[0] = block_threads(B, n, m, elem_size);
+  out[1] = block_groups(n, m, out[0], elem_size);
+  out[2] = (int)block_bytes(n, m, out[1], elem_size);
+}
+
+// Shared-memory bytes one QP needs in the block form without its partials;
+// the wrapper dispatches by it.
 size_t admm_batched_qp_bytes(int n, int m, int elem_size) {
-  return qp_elems(n, m) * (size_t)elem_size;
+  return qp_bytes(n, m, elem_size);
 }
 
 int admm_batched_f32(const float* Kinv, const float* A, const float* q,

@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(kThreads) admm_cluster_kernel(
     T* __restrict__ y_out, int n, int m, int iters, T sigma, T alpha,
     Plan p) {
   const size_t b = blockIdx.x / (unsigned)p.R;
-  solve<T, V, kKinv, true>(Kinv + b * n * n, A + b * m * n, q + b * n,
+  solve<T, V, kKinv, kAll>(Kinv + b * n * n, A + b * m * n, q + b * n,
                            l + b * m, u + b * m, rho, w0 + b * n, y0 + b * m,
                            w_out + b * n, y_out + b * m, n, m, iters, sigma,
                            alpha, p);
@@ -63,9 +63,9 @@ __global__ void __launch_bounds__(kThreads) admm_cluster_kernel(
 // the QP when R is 0; false when none of up to 8 blocks does.
 bool plan_for(int n, int m, int elem, int R, int V, Plan* p) {
   if (R > 0)
-    return R <= kMaxCluster && make_plan(n, m, elem, R, V, kKinv, true, p);
+    return R <= kMaxCluster && make_plan(n, m, elem, R, V, kKinv, kAll, p);
   for (R = 1; R <= kMaxCluster; ++R)
-    if (make_plan(n, m, elem, R, V, kKinv, true, p)) return true;
+    if (make_plan(n, m, elem, R, V, kKinv, kAll, p)) return true;
   return false;
 }
 

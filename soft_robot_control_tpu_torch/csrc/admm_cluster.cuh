@@ -8,12 +8,13 @@
 // u, z, y, rho. The n-vectors q, w, rhs, x~ are replicated in every block.
 // One iteration, with t = rho z - y already formed for the block's rows:
 //   1. partial of A^T t over the block's rows, walked by columns and sent
-//      straight into the shared memory of the blocks that need it
-//      (distributed shared memory), one slot per sender;
+//      into the shared memory of the blocks that need it (distributed
+//      shared memory), one slot per sender;
 //   2. rhs = sigma w - q + the R slots, in rank order;
 //   3. K^-1 form: partial K^-1[rows_r, :]^T rhs[rows_r] by columns (K^-1 is
 //      symmetric, so the partials add up to K^-1 rhs; rhs is needed at the
-//      block's own rows only, so step 1 sends each element to one block).
+//      block's own rows only, so step 1 sends each block a window of the
+//      partial around its rows).
 //      M1 form: s[rows_r] = M1[rows_r, :] rhs by rows, then the partial
 //      M1[rows_r, :]^T s[rows_r] by columns; it needs only the block's own
 //      slice of s, so nothing is exchanged between the two passes. Either
@@ -24,14 +25,18 @@
 // The two exchanges an iteration are what the design turns on. A cluster
 // barrier with release and acquire (cluster.sync()) costs 0.74 us on an
 // H100 whatever the cluster's size, 0.66 us of it the fence; a relaxed one
-// 0.08 us. So the partials travel as asynchronous remote stores (st.async)
-// that credit their bytes to a transaction barrier (mbarrier) in the
-// receiving block, which waits until all R senders' bytes are in: data and
-// signal go one way, with no fence and no cluster barrier inside the loop.
-// A store a lane is still dear (760 of them and as many barrier updates an
-// exchange), so where the rows allow 16-byte pieces the block first gathers
-// its partial in its own shared memory and then sends it with one bulk copy
+// 0.08 us. So the partials travel as asynchronous copies that credit their
+// bytes to a transaction barrier (mbarrier) in the receiving block, which
+// waits until all R senders' bytes are in: data and signal go one way, with
+// no fence and no cluster barrier inside the loop. A block gathers its
+// partial in its own shared memory and sends it with one bulk copy
 // (cp.async.bulk, shared memory to a peer's shared memory) per destination.
+// A bulk copy moves 16-byte pieces between 16-byte boundaries, so every
+// n-vector is laid out over nw = n rounded up to 16 bytes, and the window
+// of the A^T t partial that a block receives (its rows of K^-1) is widened
+// to 16-byte boundaries on both sides: any n and any slicing goes this way,
+// with R copies a block an exchange where an element-by-element exchange
+// would take a remote store and a barrier credit an element.
 // A slot is safe against its sender's next write without a further signal:
 // a block sends its x~ partial of iteration k+1 only after it has all rhs
 // partials of k+1, which every peer sent after it had read the x~ slots of
@@ -49,10 +54,14 @@
 // rows (four ways at 16 bytes a lane) and add up by shuffles, so no partial
 // passes through shared memory. By rows a warp takes four rows at a time,
 // shares the loads of the vector between them, and reduces the four sums
-// together. No transposed copy exists. Where the matrices do not fit the
-// cluster's shared memory (`kResident` false) every block walks its slice
-// in place in device memory, through L2: the rows are still spread over R
-// SMs.
+// together. No transposed copy exists. How much of a block's slices stays
+// in its shared memory is the plan's residency (kRes): all of it (kAll:
+// kernel 3's cluster form; kernel 4 where it fits), none (kNone: kernel 4
+// in f64 at n=380, every block walking its slices in place in device
+// memory, through L2), or as many leading rows as the block's shared
+// memory holds, rows of A first, since A is walked twice an iteration and
+// K^-1 once (kSome: kernel 3's streaming form, admm_stream.cu), the rows
+// left over walked in place. Either way the rows are spread over R SMs.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -73,6 +82,8 @@ constexpr size_t kBarrierBytes = 16;  // two mbarriers ahead of the arrays
 constexpr long long kWaitCycles = 4000000000LL;  // ~2 s: a lost signal traps
 
 enum Form { kKinv = 0, kM1 = 1 };
+// Which rows of a block's slices stay in its shared memory.
+enum Residency { kNone = 0, kAll = 1, kSome = 2 };
 
 // How one QP is laid over a cluster. The Python wrapper mirrors make_plan
 // (ops/admm_batched.py: cluster_plan); the card tests hold the two equal.
@@ -80,9 +91,9 @@ struct Plan {
   int R;         // blocks in the cluster
   int V;         // elements a vector load (16 bytes, or 1 for ragged rows)
   int mr, nr;    // rows of A, of K^-1 (M1) a block owns; the last fewer
-  int resident;  // matrices in shared memory (1) or walked in place (0)
-  int bulk;      // partials sent as bulk copies (1) or element by element
+  int resident;  // all of the slices in shared memory (1) or not (0)
   size_t smem;   // bytes of dynamic shared memory a block
+  int ra, rk;    // leading rows of the A, K^-1 (M1) slice in shared memory
 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -108,34 +119,68 @@ inline int usable_cluster(int n, int R) {
   return R;
 }
 
-// Elements of the slots that receive the partials of A^T t: rhs is needed
-// at the block's own rows of K^-1 only, or, in the M1 form, in full.
-// Rounded up to a multiple of 4, so that what follows stays 16-byte aligned.
-__host__ __device__ inline size_t rhs_slot_elems(int n, int nr, int R,
-                                                 int form) {
-  return ((size_t)R * (form == kM1 ? n : nr) + 3) / 4 * 4;
+// Elements in 16 bytes, and len rounded up to a multiple of them: every
+// piece of a bulk copy starts and ends on 16 bytes.
+__host__ __device__ inline int per16(int elem) { return 16 / elem; }
+__host__ __device__ inline int up16(int len, int elem) {
+  const int w = per16(elem);
+  return (len + w - 1) / w * w;
 }
 
-// The plan for a cluster of at most R blocks; false when a block's share
-// does not fit its shared memory. Shared memory of a block: two mbarriers,
-// its slices of A and K^-1 (resident only), q, w, rhs, x~ and the block's
-// own two partials (n each), the R slots of x~ partials (n each) and of rhs
-// partials, l, u, z, y, t, rho (mr each) and, in the M1 form, s (nr). Bulk
-// copies need every piece to start and end on 16 bytes.
+// Elements of one sender's slot of A^T t partials: the window around the
+// receiver's rows of K^-1, widened to 16-byte boundaries (at most nr +
+// 2 (w - 1) elements), or, in the M1 form, the whole n-vector.
+__host__ __device__ inline int rhs_slot(int n, int nr, int elem, int form) {
+  return form == kM1 ? up16(n, elem) : up16(nr + 2 * (per16(elem) - 1), elem);
+}
+
+// The window [lo, hi) of the A^T t partial that block `rank` receives: its
+// rows of K^-1 widened to 16-byte boundaries.
+__host__ __device__ inline void rhs_window(int n, int R, int rank, int elem,
+                                           int& lo, int& hi) {
+  row_slice(n, R, rank, lo, hi);
+  lo = lo / per16(elem) * per16(elem);
+  hi = up16(hi, elem);
+}
+
+// Row stride of the resident rows: kSome pads each row with zeros to nw (n
+// rounded up to 16 bytes), so that its walks read 16 bytes a load whatever
+// n is; kAll keeps the rows as they are in device memory.
+__host__ __device__ inline int row_stride(int n, int elem, int residency) {
+  return residency == kSome ? up16(n, elem) : n;
+}
+
+// The plan for a cluster of at most R blocks with the given residency;
+// false when a block's share does not fit its shared memory. Shared memory
+// of a block: two mbarriers; the resident rows of its slices of A and K^-1
+// (row_stride each), the region padded to 16 bytes; q, w, rhs, x~ and the
+// block's own two partials (nw each); the R slots of x~ partials (nw each)
+// and of A^T t partials (rhs_slot each); l, u, z, y, t, rho (mr each) and,
+// in the M1 form, s (nr). kSome keeps as many rows as the rest leaves room
+// for, rows of A first.
 inline bool make_plan(int n, int m, int elem, int R, int V, int form,
-                      bool resident, Plan* p) {
+                      int residency, Plan* p) {
   R = usable_cluster(n, R);
   p->R = R;
   p->V = V;
   p->mr = ceil_div(m, R);
   p->nr = ceil_div(n, R);
-  p->resident = resident ? 1 : 0;
-  p->bulk = V * elem == 16 && p->nr % V == 0;
-  const size_t elems =
-      (resident ? ((size_t)p->mr + p->nr) * n : 0) + (6 + (size_t)R) * n +
-      rhs_slot_elems(n, p->nr, R, form) + 6 * (size_t)p->mr +
-      (form == kM1 ? p->nr : 0);
-  p->smem = kBarrierBytes + elems * (size_t)elem;
+  const size_t nw = up16(n, elem);
+  const size_t vec = (6 + (size_t)R) * nw +
+                     (size_t)R * rhs_slot(n, p->nr, elem, form) +
+                     6 * (size_t)p->mr + (form == kM1 ? p->nr : 0);
+  const size_t room = (kMaxSmem - kBarrierBytes) / (size_t)elem;
+  const int sld = row_stride(n, elem, residency);
+  if (vec > room) return false;
+  size_t rows = residency == kAll    ? (size_t)p->mr + p->nr
+                : residency == kNone ? 0
+                                     : (room - vec) / nw;
+  p->ra = (int)(rows < (size_t)p->mr ? rows : (size_t)p->mr);
+  rows -= p->ra;
+  p->rk = (int)(rows < (size_t)p->nr ? rows : (size_t)p->nr);
+  p->resident = p->ra == p->mr && p->rk == p->nr;
+  p->smem = kBarrierBytes +
+            (up16((p->ra + p->rk) * sld, elem) + vec) * (size_t)elem;
   return p->smem <= kMaxSmem;
 }
 
@@ -149,19 +194,25 @@ __device__ __forceinline__ Vec<T, V> load_vec(const T* p) {
   return *reinterpret_cast<const Vec<T, V>*>(p);
 }
 
-// Start the copy of `count` elements (a multiple of V) into shared memory:
-// 16-byte asynchronous copies where V allows, plain loads otherwise. The
-// caller waits with __pipeline_wait_prior(0) and a block barrier.
-template <typename T, int V>
-__device__ __forceinline__ void copy_slice(T* dst, const T* __restrict__ src,
-                                           size_t count) {
-  if constexpr (V * sizeof(T) == 16) {
-    for (size_t i = (size_t)threadIdx.x * V; i < count;
-         i += (size_t)blockDim.x * V)
+// Start the copy of `rows` rows of n elements at src (row stride n) into
+// shared memory at dst (row stride sld >= n, the padding set to zero):
+// 16-byte asynchronous copies where the rows allow them (kGV elements of
+// 16 bytes, sld == n), element by element otherwise. The caller waits with
+// __pipeline_wait_prior(0) and a block barrier.
+template <typename T, int kGV>
+__device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src,
+                                          int rows, int n, int sld) {
+  const size_t count = (size_t)rows * sld;
+  if constexpr (kGV * sizeof(T) == 16) {
+    for (size_t i = (size_t)threadIdx.x * kGV; i < count;
+         i += (size_t)blockDim.x * kGV)
       __pipeline_memcpy_async(dst + i, src + i, 16);
     __pipeline_commit();
   } else {
-    for (size_t i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+    for (size_t i = threadIdx.x; i < count; i += blockDim.x) {
+      const size_t r = i / sld, c = i - r * sld;
+      dst[i] = c < (size_t)n ? src[r * n + c] : T(0);
+    }
   }
 }
 
@@ -214,39 +265,6 @@ __device__ __forceinline__ void barrier_wait(uint32_t bar, uint32_t parity,
   __syncthreads();
 }
 
-// Store V elements at the cluster address `dst` and credit their bytes to
-// the mbarrier at the cluster address `bar` of the same block.
-template <typename T, int V>
-__device__ __forceinline__ void send(uint32_t dst, const Vec<T, V>& x,
-                                     uint32_t bar) {
-  if constexpr (sizeof(T) == 4 && V == 4) {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-        "[%0], {%1, %2, %3, %4}, [%5];"
-        ::"r"(dst), "r"(__float_as_uint(x.v[0])), "r"(__float_as_uint(x.v[1])),
-        "r"(__float_as_uint(x.v[2])), "r"(__float_as_uint(x.v[3])), "r"(bar)
-        : "memory");
-  } else if constexpr (sizeof(T) == 4) {
-    static_assert(V == 1, "f32 goes 4 or 1 elements a store");
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
-        "[%0], %1, [%2];"
-        ::"r"(dst), "r"(__float_as_uint(x.v[0])), "r"(bar) : "memory");
-  } else if constexpr (V == 2) {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 "
-        "[%0], {%1, %2}, [%3];"
-        ::"r"(dst), "l"(__double_as_longlong(x.v[0])),
-        "l"(__double_as_longlong(x.v[1])), "r"(bar) : "memory");
-  } else {
-    static_assert(V == 1, "f64 goes 2 or 1 elements a store");
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 "
-        "[%0], %1, [%2];"
-        ::"r"(dst), "l"(__double_as_longlong(x.v[0])), "r"(bar) : "memory");
-  }
-}
-
 // Make this thread's writes to shared memory visible to the bulk copies
 // that a thread of the block starts after the next block barrier.
 __device__ __forceinline__ void fence_for_bulk() {
@@ -266,6 +284,45 @@ __device__ __forceinline__ void send_bulk(uint32_t dst, uint32_t src,
 
 // ---- the walks ----
 
+// The rows of a block's slice of a row-major matrix with n columns: rows
+// [0, res) in shared memory at `sm` with row stride sld (zero past n), the
+// rest in place at `gm` with row stride n; kRes fixes the split where it is
+// all or none. load<V>(r, c) reads the V elements from column c of row r:
+// one 16-byte load from shared memory, from device memory one load of kGV
+// elements where that is V, else element by element, zero past n.
+template <typename T, int kRes, int kGV>
+struct Rows {
+  const T* sm;
+  const T* gm;
+  int res;
+  int sld;
+  int n;
+  template <int V>
+  __device__ __forceinline__ Vec<T, V> sload(int r, int c) const {
+    return load_vec<T, V>(sm + (size_t)r * sld + c);
+  }
+  template <int V>
+  __device__ __forceinline__ Vec<T, V> gload(int r, int c) const {
+    const T* p = gm + (size_t)r * n + c;
+    if constexpr (kGV == V) {
+      return load_vec<T, V>(p);
+    } else {
+      Vec<T, V> a;
+#pragma unroll
+      for (int k = 0; k < V; ++k) a.v[k] = c + k < n ? p[k] : T(0);
+      return a;
+    }
+  }
+  template <int V>
+  __device__ __forceinline__ Vec<T, V> load(int r, int c) const {
+    if constexpr (kRes == kAll) return this->template sload<V>(r, c);
+    else if constexpr (kRes == kNone) return this->template gload<V>(r, c);
+    else
+      return r < res ? this->template sload<V>(r, c)
+                     : this->template gload<V>(r, c);
+  }
+};
+
 // Lanes of a warp in the column walk: kCols lanes side by side cover 128
 // bytes of a row, and kRows such groups split the rows between them.
 template <typename T, int V>
@@ -278,9 +335,10 @@ struct Lanes {
 // emit(c, g, acc) with acc[k] = sum_r M[r, c + k] v[r], k < V, for every
 // chunk of V columns from c: a warp owns the columns of 128 bytes and all
 // the rows, its kRows lane groups take every kRows-th row and add up by
-// shuffles, and each group g calls emit with the full sum.
-template <typename T, int V, typename F>
-__device__ __forceinline__ void walk_cols(const T* M, int rows, int cols,
+// shuffles, and each group g calls emit with the full sum. A chunk may
+// reach past `cols` into the rows' zero padding; emit takes it whole.
+template <typename T, int V, typename M_, typename F>
+__device__ __forceinline__ void walk_cols(const M_& M, int rows, int cols,
                                           const T* v, F emit) {
   constexpr int kCols = Lanes<T, V>::kCols, kRows = Lanes<T, V>::kRows;
   const int lane = threadIdx.x & 31;
@@ -295,7 +353,7 @@ __device__ __forceinline__ void walk_cols(const T* M, int rows, int cols,
     if (c < cols) {
 #pragma unroll 4
       for (int r = g; r < rows; r += kRows) {
-        const Vec<T, V> a = load_vec<T, V>(M + (size_t)r * cols + c);
+        const Vec<T, V> a = M.template load<V>(r, c);
         const T vr = v[r];
 #pragma unroll
         for (int k = 0; k < V; ++k) acc.v[k] += a.v[k] * vr;
@@ -314,19 +372,20 @@ __device__ __forceinline__ void walk_cols(const T* M, int rows, int cols,
 // 4w+3 together, lanes along the row V elements at a time, so that one load
 // of v serves four rows; the four sums are reduced together (halving the
 // values a lane carries at each of the first two shuffle steps), and four
-// lanes call emit, one row each.
-template <typename T, int V, typename F>
-__device__ __forceinline__ void walk_rows(const T* M, int rows, int cols,
+// lanes call emit, one row each. v is read up to the chunk's end, past
+// `cols` where the rows are padded: it must hold zeros there.
+template <typename T, int V, typename M_, typename F>
+__device__ __forceinline__ void walk_rows(const M_& M, int rows, int cols,
                                           const T* v, F emit) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarp = blockDim.x >> 5;
   for (int r = 4 * warp; r < rows; r += 4 * nwarp) {
-    const T* row[4];
+    int row[4];
     T acc[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      row[k] = M + (size_t)(r + k < rows ? r + k : rows - 1) * cols;
+      row[k] = r + k < rows ? r + k : rows - 1;
       acc[k] = 0;
     }
 #pragma unroll 2
@@ -334,7 +393,7 @@ __device__ __forceinline__ void walk_rows(const T* M, int rows, int cols,
       const Vec<T, V> x = load_vec<T, V>(v + c);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const Vec<T, V> a = load_vec<T, V>(row[k] + c);
+        const Vec<T, V> a = M.template load<V>(row[k], c);
 #pragma unroll
         for (int e = 0; e < V; ++e) acc[k] += a.v[e] * x.v[e];
       }
@@ -355,19 +414,6 @@ __device__ __forceinline__ void walk_rows(const T* M, int rows, int cols,
   }
 }
 
-// Send the chunk `acc` of V elements from column c into slot `rank` (n
-// elements a slot, `slots` this block's shared address of slot 0) of every
-// block of the cluster; the kRows lane groups that hold the chunk share the
-// R destinations between them.
-template <typename T, int V>
-__device__ __forceinline__ void send_all(uint32_t slots, uint32_t bar, int R,
-                                         int rank, int n, int c, int g,
-                                         const Vec<T, V>& acc) {
-  const uint32_t at = slots + (uint32_t)(((size_t)rank * n + c) * sizeof(T));
-  for (int dst = g; dst < R; dst += Lanes<T, V>::kRows)
-    send<T, V>(remote_addr(at, dst), acc, remote_addr(bar, dst));
-}
-
 // Sum, in rank order, of element i of the R slots of `len` elements each.
 template <typename T>
 __device__ __forceinline__ T slots_sum(const T* slots, int R, int len,
@@ -386,7 +432,7 @@ __device__ __forceinline__ T slots_sum(const T* slots, int R, int len,
 // One QP on the calling cluster; every thread of every block of the
 // cluster calls it with the same arguments, the pointers at the QP's own
 // data. K is K^-1 (kForm = kKinv, symmetric) or M1 (kForm = kM1).
-template <typename T, int V, int kForm, bool kResident>
+template <typename T, int kGV, int kForm, int kRes>
 __device__ __forceinline__ void solve(
     const T* __restrict__ K, const T* __restrict__ A,
     const T* __restrict__ q, const T* __restrict__ l,
@@ -396,28 +442,34 @@ __device__ __forceinline__ void solve(
     const Plan& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int R = p.R, nr = p.nr;
-  const bool bulk = p.bulk;
+  constexpr int kElem = sizeof(T);
+  // the walks' vector width: 16 bytes on kSome's padded rows, else what
+  // the rows in device memory allow
+  constexpr int V = kRes == kSome ? 16 / kElem : kGV;
+  const int R = p.R, nr = p.nr, nw = up16(n, kElem);
+  const int sld = row_stride(n, kElem, kRes);
   const int rank = (int)cluster.block_rank();
-  int a_lo, a_hi, k_lo, k_hi;
+  int a_lo, a_hi, k_lo, k_hi, w_lo, w_hi;
   row_slice(m, R, rank, a_lo, a_hi);
   row_slice(n, R, rank, k_lo, k_hi);
+  rhs_window(n, R, rank, kElem, w_lo, w_hi);
   const int ma = a_hi - a_lo, nk = k_hi - k_lo;
   const int tid = threadIdx.x, nthr = blockDim.x;
 
   const uint32_t rs_bar = smem_addr(smem_raw);  // rhs partials are in
   const uint32_t xs_bar = rs_bar + 8;           // x~ partials are in
   T* sA = reinterpret_cast<T*>(smem_raw + kBarrierBytes);
-  T* sK = sA + (kResident ? (size_t)p.mr * n : 0);
-  T* sq = sK + (kResident ? (size_t)p.nr * n : 0);
-  T* sw = sq + n;
-  T* sr = sw + n;   // rhs: the block's rows of K^-1, or all in the M1 form
-  T* sx = sr + n;   // x~
-  T* pa = sx + n;   // this block's partial of A^T t, gathered for a bulk copy
-  T* pk = pa + n;   // this block's partial of x~, likewise
-  T* xs = pk + n;   // R slots of n: the blocks' partials of x~
-  T* rs = xs + (size_t)R * n;  // R slots: the blocks' partials of A^T t
-  T* sl = rs + rhs_slot_elems(n, nr, R, kForm);
+  T* sK = sA + (size_t)p.ra * sld;  // ra = mr, rk = nr (kAll); 0 (kNone)
+  T* sq = sA + up16((p.ra + p.rk) * sld, kElem);
+  T* sw = sq + nw;
+  T* sr = sw + nw;  // rhs: the block's rows of K^-1, or all in the M1 form
+  T* sx = sr + nw;  // x~
+  T* pa = sx + nw;  // this block's partial of A^T t, gathered for a bulk copy
+  T* pk = pa + nw;  // this block's partial of x~, likewise
+  T* xs = pk + nw;  // R slots of nw: the blocks' partials of x~
+  T* rs = xs + (size_t)R * nw;  // R slots: the blocks' partials of A^T t
+  const int rs_len = rhs_slot(n, nr, kElem, kForm);
+  T* sl = rs + (size_t)R * rs_len;
   T* su = sl + p.mr;
   T* sz = su + p.mr;
   T* sy = sz + p.mr;
@@ -426,10 +478,11 @@ __device__ __forceinline__ void solve(
   T* ss = sp + p.mr;  // M1 rhs, the block's rows (M1 form only)
   const uint32_t xs_at = smem_addr(xs), rs_at = smem_addr(rs);
   // bytes a phase receives: from each of the R blocks, its partial of x~,
-  // and its partial of rhs at this block's rows (all rows in the M1 form)
-  const uint32_t xs_bytes = (uint32_t)(R * n * sizeof(T));
+  // and its partial of A^T t over this block's window (all of it in the M1
+  // form)
+  const uint32_t xs_bytes = (uint32_t)(R * nw * kElem);
   const uint32_t rs_bytes =
-      (uint32_t)(R * (kForm == kM1 ? n : nk) * sizeof(T));
+      (uint32_t)(R * (kForm == kM1 ? nw : w_hi - w_lo) * kElem);
   if (tid == 0) {
     barrier_init(rs_bar);
     barrier_init(xs_bar);
@@ -438,17 +491,18 @@ __device__ __forceinline__ void solve(
     barrier_expect(xs_bar, xs_bytes);
   }
 
-  const T* mA = A + (size_t)a_lo * n;
-  const T* mK = K + (size_t)k_lo * n;
-  if constexpr (kResident) {
-    copy_slice<T, V>(sA, mA, (size_t)ma * n);
-    copy_slice<T, V>(sK, mK, (size_t)nk * n);
-    mA = sA;
-    mK = sK;
+  const int ra = p.ra < ma ? p.ra : ma, rk = p.rk < nk ? p.rk : nk;
+  const Rows<T, kRes, kGV> mA{sA, A + (size_t)a_lo * n, ra, sld, n};
+  const Rows<T, kRes, kGV> mK{sK, K + (size_t)k_lo * n, rk, sld, n};
+  if constexpr (kRes != kNone) {
+    copy_rows<T, kGV>(sA, mA.gm, ra, n, sld);
+    copy_rows<T, kGV>(sK, mK.gm, rk, n, sld);
   }
-  for (int i = tid; i < n; i += nthr) {
-    sq[i] = q[i];
-    sw[i] = w0[i];
+  for (int i = tid; i < nw; i += nthr) {  // zero past n: the walks read it
+    sq[i] = i < n ? q[i] : T(0);
+    sw[i] = i < n ? w0[i] : T(0);
+    sr[i] = 0;
+    sx[i] = 0;
   }
   for (int j = tid; j < ma; j += nthr) {
     sl[j] = l[a_lo + j];
@@ -456,7 +510,7 @@ __device__ __forceinline__ void solve(
     sy[j] = y0[a_lo + j];
     sp[j] = rho[a_lo + j];
   }
-  if constexpr (kResident && V * sizeof(T) == 16) __pipeline_wait_prior(0);
+  if constexpr (kRes != kNone && kGV * kElem == 16) __pipeline_wait_prior(0);
   __syncthreads();
   walk_rows<T, V>(mA, ma, n, sw, [&](int j, T acc) {
     const T z = admm::clip(acc, sl[j], su[j]);
@@ -465,76 +519,54 @@ __device__ __forceinline__ void solve(
   });
   cluster.sync();  // every block runs, barriers armed, before a peer sends
 
+  // a walk's emit: lane group 0 gathers the chunk into the partial `part`
+  const auto gather = [](T* part) {
+    return [part](int c, int g, const Vec<T, V>& acc) {
+      if (g == 0) *reinterpret_cast<Vec<T, V>*>(part + c) = acc;
+    };
+  };
   const T one_m_alpha = T(1) - alpha;
   for (int it = 0; it < iters; ++it) {
     const uint32_t parity = it & 1;
-    // A^T t over the block's rows, sent to where rhs is formed
-    walk_cols<T, V>(mA, ma, n, st, [&](int c, int g, const Vec<T, V>& acc) {
-      if (bulk) {
-        if (g == 0) *reinterpret_cast<Vec<T, V>*>(pa + c) = acc;
-      } else if constexpr (kForm == kM1) {
-        send_all<T, V>(rs_at, rs_bar, R, rank, n, c, g, acc);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k) {  // lane group g sends element k
-          if (k % Lanes<T, V>::kRows != g) continue;
-          const int owner = (c + k) / nr;
-          const size_t at = (size_t)rank * nr + c + k - owner * nr;
-          Vec<T, 1> x;
-          x.v[0] = acc.v[k];
-          send<T, 1>(remote_addr(rs_at + (uint32_t)(at * sizeof(T)), owner),
-                     x, remote_addr(rs_bar, owner));
-        }
-      }
-    });
-    if (bulk) {
-      fence_for_bulk();
-      __syncthreads();
-      if (tid < R) {  // thread r sends block r what it needs of the partial
-        int lo = 0, hi = n;
-        if constexpr (kForm == kKinv) row_slice(n, R, tid, lo, hi);
-        const int len = kForm == kM1 ? n : nr;
-        send_bulk(
-            remote_addr(rs_at + (uint32_t)((size_t)rank * len * sizeof(T)),
-                        tid),
-            smem_addr(pa + lo), (uint32_t)((hi - lo) * sizeof(T)),
-            remote_addr(rs_bar, tid));
-      }
+    // A^T t over the block's rows, sent to where rhs is formed: thread r
+    // sends block r its window of the partial
+    walk_cols<T, V>(mA, ma, n, st, gather(pa));
+    fence_for_bulk();
+    __syncthreads();
+    if (tid < R) {
+      int lo = 0, hi = nw;
+      if constexpr (kForm == kKinv) rhs_window(n, R, tid, kElem, lo, hi);
+      send_bulk(
+          remote_addr(rs_at + (uint32_t)((size_t)rank * rs_len * kElem), tid),
+          smem_addr(pa + lo), (uint32_t)((hi - lo) * kElem),
+          remote_addr(rs_bar, tid));
     }
     barrier_wait(rs_bar, parity, rs_bytes);
     // the partial of x~ from the block's rows of K^-1 (M1), sent to all
-    const auto to_all = [&](int c, int g, const Vec<T, V>& acc) {
-      if (bulk) {
-        if (g == 0) *reinterpret_cast<Vec<T, V>*>(pk + c) = acc;
-      } else {
-        send_all<T, V>(xs_at, xs_bar, R, rank, n, c, g, acc);
-      }
-    };
     if constexpr (kForm == kM1) {
       for (int i = tid; i < n; i += nthr)
-        sr[i] = sigma * sw[i] - sq[i] + slots_sum(rs, R, n, i);
+        sr[i] = sigma * sw[i] - sq[i] + slots_sum(rs, R, rs_len, i);
       __syncthreads();
       walk_rows<T, V>(mK, nk, n, sr, [&](int i, T acc) { ss[i] = acc; });
       __syncthreads();
-      walk_cols<T, V>(mK, nk, n, ss, to_all);  // M1^T s, own rows
+      walk_cols<T, V>(mK, nk, n, ss, gather(pk));  // M1^T s, own rows
     } else {
+      const T* own = rs + (k_lo - w_lo);  // this block's rows in each slot
       for (int j = tid; j < nk; j += nthr)
-        sr[j] = sigma * sw[k_lo + j] - sq[k_lo + j] + slots_sum(rs, R, nr, j);
+        sr[j] = sigma * sw[k_lo + j] - sq[k_lo + j] +
+                slots_sum(own, R, rs_len, j);
       __syncthreads();
-      walk_cols<T, V>(mK, nk, n, sr, to_all);  // K^-1[rows, :]^T rhs[rows]
+      walk_cols<T, V>(mK, nk, n, sr, gather(pk));  // K^-1[rows, :]^T rhs
     }
-    if (bulk) {
-      fence_for_bulk();
-      __syncthreads();
-      if (tid < R)
-        send_bulk(remote_addr(
-                      xs_at + (uint32_t)((size_t)rank * n * sizeof(T)), tid),
-                  smem_addr(pk), (uint32_t)(n * sizeof(T)),
-                  remote_addr(xs_bar, tid));
-    }
+    fence_for_bulk();
+    __syncthreads();
+    if (tid < R)
+      send_bulk(
+          remote_addr(xs_at + (uint32_t)((size_t)rank * nw * kElem), tid),
+          smem_addr(pk), (uint32_t)(nw * kElem), remote_addr(xs_bar, tid));
     barrier_wait(xs_bar, parity, xs_bytes);
     for (int i = tid; i < n; i += nthr) {
-      const T x = slots_sum(xs, R, n, i);
+      const T x = slots_sum(xs, R, nw, i);
       sx[i] = x;
       sw[i] = alpha * x + one_m_alpha * sw[i];
     }
@@ -602,16 +634,17 @@ int max_active_clusters(void (*kernel)(Params...), const Plan& p) {
   return err != cudaSuccess ? -(int)err : clusters;
 }
 
-// Fill out[0..6] with a plan for the wrappers and tests: R, V, mr, nr,
-// resident, bulk, bytes of shared memory a block.
+// Fill out[0..7] with a plan for the wrappers and tests: R, V, mr, nr,
+// resident, bytes of shared memory a block, ra, rk.
 inline void export_plan(const Plan& p, int* out) {
   out[0] = p.R;
   out[1] = p.V;
   out[2] = p.mr;
   out[3] = p.nr;
   out[4] = p.resident;
-  out[5] = p.bulk;
-  out[6] = (int)p.smem;
+  out[5] = (int)p.smem;
+  out[6] = p.ra;
+  out[7] = p.rk;
 }
 
 inline bool aligned16(const void* a, const void* b) {

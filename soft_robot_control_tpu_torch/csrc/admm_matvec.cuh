@@ -1,7 +1,9 @@
-// Block-level mat-vecs of the ADMM kernel that streams its matrices from
-// device memory (admm_stream.cu); both walk a row-major matrix so that
-// neighbouring threads read neighbouring addresses. clip and round_up_32
-// also serve the cluster-resident kernels (admm_cluster.cuh).
+// Small pieces the ADMM kernels share: the box projection, and the
+// strided dot products of kernel 1's block form (admm_batched.cu), whose
+// three mat-vecs all walk a matrix that sits in shared memory: A^T t down
+// a column in row groups, K^-1 rhs down a column (K^-1 is symmetric), and
+// A x~ along a row. clip also serves the cluster kernels
+// (admm_cluster.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -16,59 +18,63 @@ __device__ __forceinline__ T clip(T x, T lo, T hi) {
 
 __host__ __device__ inline int round_up_32(int n) { return (n + 31) & ~31; }
 
-// Column groups of matvec_cols: G groups of round_up_32(cols) threads each
-// split the rows between them (G = 1 and a loop over the columns when one
-// group does not fit the block).
-inline int col_groups(int cols, int max_threads) {
-  const int g = max_threads / round_up_32(cols);
-  return g < 1 ? 1 : (g > 8 ? 8 : g);
-}
-
-// emit(r, sum_c M[r, c] v[c]) for every row r: one warp per row, lanes along
-// the row, shuffle reduction; lane 0 calls emit. v lives in shared memory.
-template <typename T, typename F>
-__device__ __forceinline__ void matvec_rows(const T* __restrict__ M, int rows,
-                                            int cols, const T* v, F emit) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += nwarp) {
-    const T* row = M + (size_t)r * cols;
-    T acc = 0;
-#pragma unroll 4
-    for (int c = lane; c < cols; c += 32) acc += row[c] * v[c];
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) emit(r, acc);
-  }
-}
-
-// part[g, c] = sum over the rows r = g, g+G, ... of M[r, c] v[r]: thread
-// (g, c) owns column c of row group g, so a warp reads 32 neighbouring
-// elements of one row at a time. v and part (G*cols) live in shared memory;
-// the caller synchronizes and then sums the G partials with cols_sum.
+// sum_k a[k sa] v[k sv] for k < len, in four interleaved chains, so that
+// an FMA waits on the one four places before it and the loads of a group
+// of four are in flight together.
 template <typename T>
-__device__ __forceinline__ void matvec_cols(const T* __restrict__ M, int rows,
-                                            int cols, const T* v, T* part,
-                                            int G) {
-  const int cpad = round_up_32(cols);
-  const int g = G == 1 ? 0 : threadIdx.x / cpad;
-  const int c0 = G == 1 ? threadIdx.x : threadIdx.x - g * cpad;
-  const int stride = G == 1 ? blockDim.x : cpad;
-  if (g >= G) return;
-  for (int c = c0; c < cols; c += stride) {
-    T acc = 0;
-#pragma unroll 8
-    for (int r = g; r < rows; r += G) acc += M[(size_t)r * cols + c] * v[r];
-    part[g * cols + c] = acc;
+__device__ __forceinline__ T dot(const T* a, int sa, const T* v, int sv,
+                                 int len) {
+  T s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int k = 0;
+  for (; k + 4 <= len; k += 4, a += 4 * sa, v += 4 * sv) {
+    s0 += a[0] * v[0];
+    s1 += a[sa] * v[sv];
+    s2 += a[2 * sa] * v[2 * sv];
+    s3 += a[3 * sa] * v[3 * sv];
   }
+  for (; k < len; ++k, a += sa, v += sv) s0 += a[0] * v[0];
+  return (s0 + s1) + (s2 + s3);
 }
 
+// dot(a, sa, v, 1, len) with v 16-byte aligned and read 16 bytes a load:
+// the same four chains in the same order, a quarter (float) or a half
+// (double) of the loads of v, which the warp reads as broadcasts.
 template <typename T>
-__device__ __forceinline__ T cols_sum(const T* part, int cols, int G, int c) {
-  T acc = part[c];
-  for (int g = 1; g < G; ++g) acc += part[g * cols + c];
-  return acc;
+__device__ __forceinline__ T dot_v(const T* a, int sa, const T* v, int len) {
+  T s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int k = 0;
+  for (; k + 4 <= len; k += 4, a += 4 * sa) {
+    T x[4];
+    if constexpr (sizeof(T) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(v + k);
+      x[0] = q.x, x[1] = q.y, x[2] = q.z, x[3] = q.w;
+    } else {
+      const double2 q0 = *reinterpret_cast<const double2*>(v + k);
+      const double2 q1 = *reinterpret_cast<const double2*>(v + k + 2);
+      x[0] = q0.x, x[1] = q0.y, x[2] = q1.x, x[3] = q1.y;
+    }
+    s0 += a[0] * x[0];
+    s1 += a[sa] * x[1];
+    s2 += a[2 * sa] * x[2];
+    s3 += a[3 * sa] * x[3];
+  }
+  for (; k < len; ++k, a += sa) s0 += a[0] * v[k];
+  return (s0 + s1) + (s2 + s3);
+}
+
+// sum_k a[k sa] for k < len, in the same four chains.
+template <typename T>
+__device__ __forceinline__ T sum(const T* a, int sa, int len) {
+  T s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int k = 0;
+  for (; k + 4 <= len; k += 4, a += 4 * sa) {
+    s0 += a[0];
+    s1 += a[sa];
+    s2 += a[2 * sa];
+    s3 += a[3 * sa];
+  }
+  for (; k < len; ++k, a += sa) s0 += a[0];
+  return (s0 + s1) + (s2 + s3);
 }
 
 }  // namespace admm

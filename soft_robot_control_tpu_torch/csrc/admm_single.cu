@@ -35,7 +35,7 @@ namespace {
 
 using namespace admm_cluster;
 
-template <typename T, int V, bool kResident>
+template <typename T, int V, int kRes>
 __global__ void __launch_bounds__(kThreads) admm_single_kernel(
     const T* __restrict__ M1, const T* __restrict__ A,
     const T* __restrict__ q, const T* __restrict__ l,
@@ -43,15 +43,15 @@ __global__ void __launch_bounds__(kThreads) admm_single_kernel(
     const T* __restrict__ w0, const T* __restrict__ y0, T* __restrict__ w_out,
     T* __restrict__ y_out, int n, int m, int iters, T sigma, T alpha,
     Plan p) {
-  solve<T, V, kM1, kResident>(M1, A, q, l, u, rho, w0, y0, w_out, y_out, n, m,
-                              iters, sigma, alpha, p);
+  solve<T, V, kM1, kRes>(M1, A, q, l, u, rho, w0, y0, w_out, y_out, n, m,
+                         iters, sigma, alpha, p);
 }
 
 // The plan on a full cluster, resident where the matrices fit; false when
 // not even the vectors fit a block's shared memory.
 bool plan_for(int n, int m, int elem, int V, Plan* p) {
-  return make_plan(n, m, elem, kMaxCluster, V, kM1, true, p) ||
-         make_plan(n, m, elem, kMaxCluster, V, kM1, false, p);
+  return make_plan(n, m, elem, kMaxCluster, V, kM1, kAll, p) ||
+         make_plan(n, m, elem, kMaxCluster, V, kM1, kNone, p);
 }
 
 template <typename T, int V>
@@ -59,10 +59,10 @@ int launch_v(const Plan& p, void* stream, const T* M1, const T* A, const T* q,
              const T* l, const T* u, const T* rho, const T* w0, const T* y0,
              T* w_out, T* y_out, int n, int m, int iters, T sigma, T alpha) {
   if (p.resident)
-    return launch_clusters(admm_single_kernel<T, V, true>, p, 1, stream, M1,
+    return launch_clusters(admm_single_kernel<T, V, kAll>, p, 1, stream, M1,
                            A, q, l, u, rho, w0, y0, w_out, y_out, n, m, iters,
                            sigma, alpha, p);
-  return launch_clusters(admm_single_kernel<T, V, false>, p, 1, stream, M1, A,
+  return launch_clusters(admm_single_kernel<T, V, kNone>, p, 1, stream, M1, A,
                          q, l, u, rho, w0, y0, w_out, y_out, n, m, iters,
                          sigma, alpha, p);
 }

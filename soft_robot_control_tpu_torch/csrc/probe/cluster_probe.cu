@@ -74,16 +74,17 @@ __global__ void walk_loop(long long* cycles, float* out, int rows, int cols,
     o[i] = 0;
   }
   __syncthreads();
+  const Rows<float, kAll, 4> Ms{M, M, rows, cols, cols};
   const long long t0 = clock64();
   for (int rep = 0; rep < reps; ++rep) {
     if (kWalk == kCols)
-      walk_cols<float, 4>(M, rows, cols, v,
+      walk_cols<float, 4>(Ms, rows, cols, v,
                           [&](int c, int g, const Vec<float, 4>& a) {
                             if (g == 0)
                               *reinterpret_cast<Vec<float, 4>*>(o + c) = a;
                           });
     if (kWalk == kRows)
-      walk_rows<float, 4>(M, rows, cols, v, [&](int r, float a) { o[r] = a; });
+      walk_rows<float, 4>(Ms, rows, cols, v, [&](int r, float a) { o[r] = a; });
     if (kWalk == kStream) {  // every element once, 16 bytes a thread
       Vec<float, 4> acc = {0, 0, 0, 0};
 #pragma unroll 4

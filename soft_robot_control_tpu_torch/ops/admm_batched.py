@@ -5,20 +5,27 @@ _admm_chunk_kernel and _admm_kinv_kernel (entry admm_batched_pallas) as
 three hand-written CUDA kernels that compute the same function:
 
 - csrc/admm_batched.cu, for QPs that fit a block's shared memory, in two
-  forms chosen by size and element type (`batched_form`): in float32 for
-  n <= 32, m <= 64 (the condensed LOCP, n=20, m=40) one warp per QP with
-  A, A^T and K^-1 in registers, each mat-vec a chain of FMAs on a lane's
-  own registers against a vector broadcast from shared memory; otherwise
-  one warp per QP with K^-1 and A resident in shared memory. Both are bound
-  by the latency of the per-iteration chain of small mat-vecs.
+  forms chosen by a rule on (n, m, element size) (`batched_form`): in
+  float32 for n <= 32, m <= 64 (the condensed LOCP, n=20, m=40) one warp
+  per QP with A, A^T and K^-1 in registers; otherwise one block per QP
+  with K^-1 and A resident in shared memory and each mat-vec split over
+  the block's threads (A^T t in row groups; threads and groups from
+  `block_layout`, from B, n, m and the element size). Both are bound by the latency of the per-iteration
+  chain of small mat-vecs.
 - csrc/admm_cluster.cu, one thread-block cluster per QP with K^-1 and A
   resident across the cluster's shared memory, each block owning a slice of
   rows, for QPs that fit a cluster but not a block (the sparse LOCP, n=380,
   m=400, in f32). Device memory is read once; the iterations run on shared
-  memory and two cluster barriers each.
-- csrc/admm_stream.cu, one block per QP with K^-1 and A streamed from
-  device memory every iteration, for QPs that fit neither (the sparse LOCP
-  in f64). It is bound by bytes.
+  memory and two cluster exchanges each.
+- csrc/admm_stream.cu, the same cluster iteration on 8 blocks for QPs that
+  fit no cluster (GuSTO's sparse LOCP, n=386, m=1126; the sparse LOCP in
+  f64): each block keeps as many leading rows of its slices in shared memory
+  as fit, rows of A first, and walks the rest in place through L2
+  (`cluster_plan(..., stream=True)`). It is bound by those walks and the
+  chain of phases. Its vectors alone must fit a block (about 15.75 n
+  elements at n = m): n = m up to 1,842 in float64 and 3,684 in float32,
+  where the earlier one-block design took 2,641 and 5,282; larger QPs
+  raise.
 
 `admm_batched` picks among them from the QP's size and element type alone
 (`kernel_for` is the same rule in Python, `cluster_plan` the layout of a QP
@@ -39,13 +46,18 @@ from soft_robot_control_tpu_torch.ops import build
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _MAX_CLUSTER = 8      # blocks of the largest portable cluster
+_MAX_THREADS = 1024   # threads a block
+_SMS = 132            # streaming multiprocessors of an H100 SXM
 _LAUNCH_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                 + [ctypes.c_double] * 2 + [ctypes.c_void_p])
 _CLUSTER_ARGS = _LAUNCH_ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_PLAN_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
 _SIGNATURES = {
     "admm_batched": {
         "admm_batched_qp_bytes": (ctypes.c_size_t, [ctypes.c_int] * 3),
         "admm_batched_form": (ctypes.c_int, [ctypes.c_int] * 3),
+        "admm_batched_block_layout": (None, [ctypes.c_int] * 4
+                                      + [ctypes.POINTER(ctypes.c_int)]),
         "admm_batched_f32": (ctypes.c_int, _LAUNCH_ARGS),
         "admm_batched_f64": (ctypes.c_int, _LAUNCH_ARGS),
     },
@@ -57,32 +69,62 @@ _SIGNATURES = {
         "admm_cluster_f64": (ctypes.c_int, _CLUSTER_ARGS),
     },
     "admm_stream": {
+        "admm_stream_plan": (ctypes.c_int, _PLAN_ARGS),
+        "admm_stream_max_active": (ctypes.c_int, [ctypes.c_int] * 3),
         "admm_stream_f32": (ctypes.c_int, _LAUNCH_ARGS),
         "admm_stream_f64": (ctypes.c_int, _LAUNCH_ARGS),
     },
 }
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
-PLAN_FIELDS = ("R", "V", "a_rows", "k_rows", "resident", "bulk",
-               "block_bytes")
+PLAN_FIELDS = ("R", "V", "a_rows", "k_rows", "resident", "block_bytes",
+               "a_res", "k_res")
 
 
 def qp_bytes(n: int, m: int, elem_size: int) -> int:
-    """Shared memory one QP takes in csrc/admm_batched.cu (qp_elems): K^-1,
-    A with an odd row stride, 4 n-vectors and 6 m-vectors."""
-    return (n * n + m * (n | 1) + 4 * n + 6 * m) * elem_size
+    """Shared memory one QP takes in csrc/admm_batched.cu's block form
+    without its partials (qp_bytes): K^-1 and rhs in float64, then x~, A
+    with an odd row stride, 2 more n-vectors and 6 m-vectors in the QP's
+    type; rhs and x~ padded to whole 16 bytes."""
+    def up16(x, e):
+        return -(-x * e // 16) * 16 // e
+    return ((up16(n * n, 8) + up16(n, 8)) * 8
+            + (up16(n, elem_size) + m * (n | 1) + 2 * n + 6 * m) * elem_size)
 
 
 def batched_form(n: int, m: int, elem_size: int) -> str:
     """The form csrc/admm_batched.cu (admm_batched_form) takes for a QP of
-    this size and element size: 'registers' (matrices in a warp's
-    registers) in float32 for n <= 32 and m <= 64, 'shared' (matrices in
-    shared memory) otherwise."""
-    return ("registers" if elem_size == 4 and n <= 32 and m <= 64
-            else "shared")
+    this size and element size that fits a block: 'registers' (matrices in
+    a warp's registers) in float32 for n <= 32 and m <= 64, 'block' (a
+    block a QP, matrices in shared memory) otherwise."""
+    if elem_size == 4 and n <= 32 and m <= 64:
+        return "registers"
+    return "block"
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def block_layout(B: int, n: int, m: int, elem_size: int) -> dict:
+    """The block form's launch in csrc/admm_batched.cu (block_threads,
+    block_groups, block_bytes): threads a block, enough for a row of A each
+    and for n columns in about sqrt(m) row groups, a multiple of 32 in
+    [64, 1024], and at most 1024 over the blocks an SM holds at once (B /
+    132, or fewer where their shared memory is the limit); G row groups of
+    A^T t, as many as the threads hold, at most m, as the shared memory
+    beside the QP allows; the bytes of shared memory a block."""
+    groups = 1
+    while groups * groups < m:
+        groups += 1
+    t = -(-max(n * groups, m) // 32) * 32
+    qp = qp_bytes(n, m, elem_size)
+    fit = _SMEM_LIMIT // qp if qp < _SMEM_LIMIT else 1
+    per_sm = min(-(-B // _SMS) if B > _SMS else 1, fit)
+    t = min(max(min(t, (_MAX_THREADS // per_sm) & ~31), 64), _MAX_THREADS)
+    room = max(_SMEM_LIMIT - qp, 0)
+    G = max(min(t // n, m, room // (n * elem_size)), 1)
+    return dict(threads=t, groups=G,
+                block_bytes=qp + (G * n * elem_size if G > 1 else 0))
 
 
 def row_slices(rows: int, R: int):
@@ -90,6 +132,15 @@ def row_slices(rows: int, R: int):
     ceil(rows / R) each, the last ones fewer or none."""
     per = _ceil_div(rows, R)
     return [(min(r * per, rows), min(r * per + per, rows)) for r in range(R)]
+
+
+def rhs_window(n: int, R: int, rank: int, elem_size: int):
+    """The window [lo, hi) of a peer's A^T t partial that block `rank` of
+    a cluster receives (csrc/admm_cluster.cuh rhs_window): its rows of
+    K^-1, widened to 16-byte boundaries for the bulk copy."""
+    W = 16 // elem_size
+    lo, hi = row_slices(n, R)[rank]
+    return lo // W * W, _ceil_div(hi, W) * W
 
 
 def usable_cluster(n: int, R: int) -> int:
@@ -101,43 +152,62 @@ def usable_cluster(n: int, R: int) -> int:
 
 
 def cluster_plan(n: int, m: int, elem_size: int, R: int | None = None,
-                 single: bool = False):
+                 single: bool = False, stream: bool = False):
     """How csrc/admm_cluster.cuh (make_plan) lays a QP of n variables and m
     rows over a thread-block cluster, or None where it does not fit.
 
     At most R blocks a cluster (fewer where a block would own no row of
     K^-1): as given, else the smallest of 1..8 that holds the QP; the
     single-QP kernel (`single`, M1 form) always asks for 8 and walks the
-    matrices in place (`resident` False) where they do not fit. The dict
-    holds R, V (elements a 16-byte load, 1 for ragged rows), a_rows and
-    k_rows (rows of A and of K^-1 or M1 a block owns at most), resident,
-    bulk (partials travel as bulk copies, which need every piece on 16-byte
-    ends, else element by element), block_bytes (shared memory a block: two
-    barriers, the slices, q, w, rhs, x~, the block's own two partials, R
-    slots for the peers' partials of x~ and of rhs, six vectors of the
-    block's rows and, for M1, s), and a_slices, k_slices (each block's
-    [lo, hi))."""
-    V = 16 // elem_size if n % (16 // elem_size) == 0 else 1
+    matrices in place (`resident` False) where they do not fit; the
+    streaming kernel (`stream`) asks for 8 and keeps as many leading rows
+    of a block's slices as fit, rows of A first. The dict holds R, V
+    (elements a 16-byte load, 1 for ragged rows), a_rows and k_rows (rows
+    of A and of K^-1 or M1 a block owns at most), resident (all of them in
+    shared memory), block_bytes (shared memory a block: two barriers, the
+    resident rows (for `stream` each padded with zeros to n rounded up to
+    16 bytes; the region padded to 16 bytes), q, w, rhs, x~ and the
+    block's own two partials (n rounded up to 16 bytes each), R slots for
+    the peers' partials of x~ and R of A^T t, six vectors of the block's
+    rows and, for M1, s),
+    a_res and k_res (the leading rows of a block's slices of A and of K^-1
+    or M1 kept in shared memory), rhs_slot (elements of a slot of A^T t
+    partials: a window of `rhs_window`, or all n for M1), and a_slices,
+    k_slices (each block's [lo, hi))."""
+    W = 16 // elem_size
+    V = W if n % W == 0 else 1
 
-    def plan(R, resident):
+    def up16(x):
+        return _ceil_div(x, W) * W
+
+    def plan(R, residency):
         R = usable_cluster(n, R)
         mr, nr = _ceil_div(m, R), _ceil_div(n, R)
-        rhs_slots = -(-R * (n if single else nr) // 4) * 4
-        elems = ((mr + nr) * n if resident else 0) + (6 + R) * n + (
-            rhs_slots + 6 * mr + (nr if single else 0))
-        nbytes = 16 + elems * elem_size
+        slot = up16(n) if single else up16(nr + 2 * (W - 1))
+        vec = (6 + R) * up16(n) + R * slot + 6 * mr + (nr if single else 0)
+        room = (_SMEM_LIMIT - 16) // elem_size
+        if vec > room:
+            return None
+        rows = {"all": mr + nr, "none": 0}.get(residency,
+                                              (room - vec) // up16(n))
+        ra = min(rows, mr)
+        rk = min(rows - ra, nr)
+        sld = up16(n) if residency == "some" else n
+        nbytes = 16 + (up16((ra + rk) * sld) + vec) * elem_size
         if nbytes > _SMEM_LIMIT:
             return None
-        return dict(R=R, V=V, a_rows=mr, k_rows=nr, resident=resident,
-                    bulk=V * elem_size == 16 and nr % V == 0,
-                    block_bytes=nbytes, a_slices=row_slices(m, R),
-                    k_slices=row_slices(n, R))
+        return dict(R=R, V=V, a_rows=mr, k_rows=nr,
+                    resident=ra == mr and rk == nr, block_bytes=nbytes,
+                    a_res=ra, k_res=rk, rhs_slot=slot,
+                    a_slices=row_slices(m, R), k_slices=row_slices(n, R))
 
     if single:
-        return plan(_MAX_CLUSTER, True) or plan(_MAX_CLUSTER, False)
+        return plan(_MAX_CLUSTER, "all") or plan(_MAX_CLUSTER, "none")
+    if stream:
+        return plan(_MAX_CLUSTER, "some")
     if R is not None:
-        return plan(R, True) if 1 <= R <= _MAX_CLUSTER else None
-    return next((p for p in (plan(R, True) for R in range(
+        return plan(R, "all") if 1 <= R <= _MAX_CLUSTER else None
+    return next((p for p in (plan(R, "all") for R in range(
         1, _MAX_CLUSTER + 1)) if p), None)
 
 
@@ -215,27 +285,66 @@ def _launch(wrapper, lib, args, iters, sigma, alpha, *extra):
 
 def admm_stream(Kinv, A, q, l, u, rho_vec, w0, y0, iters: int,
                 sigma: float = 1e-6, alpha: float = 1.6):
-    """B fixed-iteration ADMM solves through the streaming kernel, whatever
-    the QP's size (see admm_batched_plain for the shapes). CPU tensors go
-    through the plain version."""
+    """B fixed-iteration ADMM solves through the streaming kernel, a cluster
+    of 8 blocks a QP with what does not fit their shared memory walked in
+    place, whatever the QP's size up to vectors that fit (n = m up to 1,842
+    in float64, 3,684 in float32; see admm_batched_plain for the shapes).
+    CPU tensors go through the plain version."""
     if Kinv.device.type == "cpu":
         return admm_batched_plain(Kinv, A, q, l, u, rho_vec, w0, y0, iters,
                                   sigma, alpha)
     args = _checked("admm_stream", Kinv, A, q, l, u, rho_vec, w0, y0)
-    lib = build.load("admm_stream", _SIGNATURES["admm_stream"])
-    return _launch(admm_stream, lib, args, iters, sigma, alpha)
+    return _launch(admm_stream, _stream_lib(), args, iters, sigma, alpha)
 
 
 def exported_plan(out) -> dict:
     """The integers a .cu source's export_plan wrote, as cluster_plan's
-    dict (without the slices)."""
+    dict (without rhs_slot and the slices)."""
     plan = dict(zip(PLAN_FIELDS, out))
-    plan.update(resident=bool(plan["resident"]), bulk=bool(plan["bulk"]))
+    plan.update(resident=bool(plan["resident"]))
     return plan
 
 
 def _cluster_lib():
     return build.load("admm_cluster", _SIGNATURES["admm_cluster"])
+
+
+def _stream_lib():
+    return build.load("admm_stream", _SIGNATURES["admm_stream"])
+
+
+def stream_plan_built(n: int, m: int, elem_size: int):
+    """The streaming kernel's plan as the built csrc/admm_stream.cu exports
+    it (PLAN_FIELDS), or None where not even its vectors fit. Needs the
+    CUDA toolkit."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    if _stream_lib().admm_stream_plan(n, m, elem_size, out) != 0:
+        return None
+    return exported_plan(out)
+
+
+def stream_max_active(n: int, m: int, elem_size: int) -> int:
+    """Clusters (QPs) of the streaming kernel the card holds at one time."""
+    rc = _stream_lib().admm_stream_max_active(n, m, elem_size)
+    if rc < 0:
+        raise RuntimeError(f"admm_stream_max_active(n={n}, m={m}) failed: "
+                           f"{rc}")
+    return rc
+
+
+def batched_form_built(n: int, m: int, elem_size: int) -> str:
+    """The form the built csrc/admm_batched.cu gives that QP."""
+    lib = build.load("admm_batched", _SIGNATURES["admm_batched"])
+    return ("block", "registers")[lib.admm_batched_form(n, m, elem_size)]
+
+
+def block_layout_built(B: int, n: int, m: int, elem_size: int) -> dict:
+    """The block form's layout as the built csrc/admm_batched.cu exports
+    it (block_layout's dict)."""
+    lib = build.load("admm_batched", _SIGNATURES["admm_batched"])
+    out = (ctypes.c_int * 3)()
+    lib.admm_batched_block_layout(B, n, m, elem_size, out)
+    return dict(zip(("threads", "groups", "block_bytes"), out))
 
 
 def cluster_plan_built(n: int, m: int, elem_size: int, R: int = 0):
@@ -277,11 +386,11 @@ def admm_cluster(Kinv, A, q, l, u, rho_vec, w0, y0, iters: int,
 def admm_batched(Kinv, A, q, l, u, rho_vec, w0, y0, iters: int,
                  sigma: float = 1e-6, alpha: float = 1.6):
     """B fixed-iteration ADMM solves (see admm_batched_plain for the
-    shapes). CUDA tensors go through the warp-per-QP kernel when one QP
-    fits a block's shared memory, through the cluster-resident kernel when
-    it fits a cluster's, and through the streaming kernel beyond, by the
-    byte counts that the kernels' sources export; CPU tensors go through
-    the plain version."""
+    shapes). CUDA tensors go through csrc/admm_batched.cu when one QP fits
+    a block's shared memory, in the form its rule gives the QP, through
+    the cluster-resident kernel when it fits a cluster's, and through the
+    streaming kernel beyond, by the byte counts that the kernels' sources
+    export; CPU tensors go through the plain version."""
     if Kinv.device.type == "cpu":
         return admm_batched_plain(Kinv, A, q, l, u, rho_vec, w0, y0, iters,
                                   sigma, alpha)

@@ -22,7 +22,8 @@ from soft_robot_control_tpu.control.batch_mpc import admm_fixed as jax_fixed
 from soft_robot_control_tpu.ops.pallas_admm import _admm_batched_pallas_grid
 from soft_robot_control_tpu_torch.ops.admm_batched import (
     _SMEM_LIMIT, admm_batched, admm_batched_plain, admm_cluster,
-    cluster_plan, kernel_for, qp_bytes, row_slices, usable_cluster)
+    cluster_plan, kernel_for, qp_bytes, rhs_window, row_slices,
+    usable_cluster)
 from soft_robot_control_tpu_torch.ops.admm_single import (admm_single_plain,
                                                           prepare_single)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv
@@ -84,9 +85,10 @@ def _qp(n, m, seed, eq_rows=0, inf_rows=0):
         0.1 * rng.normal(size=m))]
 
 
-# the sparse LOCP's size, ragged sizes, and fewer rows than blocks (of A
-# at (16, 5), of both at (5, 7), where the cluster shrinks to 5 blocks)
-SIZES = [(380, 400), (70, 33), (131, 77), (16, 5), (5, 7)]
+# the sparse LOCP's size, GuSTO's sparse LOCP's (the streaming kernel's,
+# on 8 blocks), ragged sizes, and fewer rows than blocks (of A at (16, 5),
+# of both at (5, 7), where the cluster shrinks to 5 blocks)
+SIZES = [(380, 400), (386, 1126), (70, 33), (131, 77), (16, 5), (5, 7)]
 
 
 @pytest.mark.parametrize("R", [1, 6, 8])
@@ -206,8 +208,9 @@ def test_kernel_for_picks_by_size_and_type(n, m, elem, kernel, R):
 @pytest.mark.parametrize("R", [None, 1, 3, 6, 8])
 def test_plan_slices_and_bytes(n, m, elem, R):
     """Where a plan exists its slices are those of `row_slices`, no block
-    is without a row of K^-1, its bytes count what the kernel lays out and
-    stay within a block's 232,448."""
+    is without a row of K^-1, its bytes count what the kernel lays out
+    (the rows' region and the n-vectors padded to 16 bytes, a window's slot
+    for each peer's A^T t partial) and stay within a block's 232,448."""
     plan = cluster_plan(n, m, elem, R)
     if plan is None:  # fits no cluster at all, or needs more blocks than R
         big = cluster_plan(n, m, elem, 8)
@@ -221,10 +224,14 @@ def test_plan_slices_and_bytes(n, m, elem, R):
     assert plan["V"] == (16 // elem if n % (16 // elem) == 0 else 1)
     mr, nr = plan["a_rows"], plan["k_rows"]
     assert (mr, nr) == (-(-m // used), -(-n // used))
-    elems = (mr + nr) * n + (6 + used) * n + -(-used * nr // 4) * 4 + 6 * mr
+    W = 16 // elem
+    nw = -(-n // W) * W
+    slot = -(-(nr + 2 * (W - 1)) // W) * W
+    assert plan["rhs_slot"] == slot
+    elems = (-(-(mr + nr) * n // W) * W + (6 + used) * nw + used * slot
+             + 6 * mr)
     assert plan["block_bytes"] == 16 + elems * elem <= 232448
-    # bulk copies only where every piece starts and ends on 16 bytes
-    assert plan["bulk"] == (n * elem % 16 == 0 and nr * elem % 16 == 0)
+    assert (plan["a_res"], plan["k_res"]) == (mr, nr) and plan["resident"]
 
 
 @pytest.mark.parametrize("n,m,elem,resident", [
@@ -250,3 +257,59 @@ def test_cluster_wrapper_on_cpu_runs_the_plain_version():
     ref = admm_batched_plain(*args, 10)
     assert (admm_cluster.launches, admm_batched.launches) == before
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("elem", [4, 8])
+@pytest.mark.parametrize("n", [380, 386, 131, 70, 5, 1])
+@pytest.mark.parametrize("R", [1, 3, 6, 8])
+def test_rhs_windows_are_aligned_and_cover_the_rows(n, R, elem):
+    """The window of the A^T t partial a block receives starts and ends on
+    16 bytes, holds the block's rows of K^-1, ends within the padded
+    n-vector and fits the slot the plan gives each peer."""
+    R = usable_cluster(n, R)
+    W = 16 // elem
+    slot = -(-(-(-n // R) + 2 * (W - 1)) // W) * W
+    plan = cluster_plan(n, 8, elem, R)
+    assert plan is None or plan["rhs_slot"] == slot
+    for rank, (lo, hi) in enumerate(row_slices(n, R)):
+        wlo, whi = rhs_window(n, R, rank, elem)
+        assert wlo % W == 0 and whi % W == 0
+        assert wlo <= lo < hi <= whi <= -(-n // W) * W
+        assert whi - wlo <= slot
+
+
+@pytest.mark.parametrize("n,m,elem,a_res,k_res", [
+    (386, 1126, 4, 132, 0), (386, 1126, 8, 58, 0), (380, 400, 8, 50, 10),
+    (380, 400, 4, 50, 48), (12, 16, 8, 3, 2)])
+def test_stream_plan_keeps_rows_of_a_first(n, m, elem, a_res, k_res):
+    """The streaming kernel's plan: 8 blocks (fewer where a block would own
+    no row of K^-1), as many leading rows of a block's slices resident as
+    the rest of its shared memory leaves room for, rows of A first (walked
+    twice an iteration, K^-1 once); no row of K^-1 before every row of A."""
+    plan = cluster_plan(n, m, elem, stream=True)
+    assert plan["R"] == usable_cluster(n, 8)
+    assert (plan["a_res"], plan["k_res"]) == (a_res, k_res)
+    assert plan["k_res"] == 0 or plan["a_res"] == plan["a_rows"]
+    assert plan["resident"] == (a_res == plan["a_rows"]
+                                and k_res == plan["k_rows"])
+    assert plan["block_bytes"] <= _SMEM_LIMIT
+    nw = -(-n // (16 // elem)) * (16 // elem)
+    more = plan["block_bytes"] + nw * elem  # one more resident row
+    assert plan["resident"] or more > _SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,m,elem,bigger", [
+    (1842, 1842, 8, (1843, 1843)), (3684, 3684, 4, (3685, 3685)),
+    (386, 30976, 8, (386, 30977)), (386, 69632, 4, (386, 69633))])
+def test_stream_plan_ends_where_its_vectors_fill_a_block(n, m, elem, bigger):
+    """The streaming kernel's limit: a QP has a plan while its vectors fit
+    a block's shared memory, every row then walked in place (n = m up to
+    1,842 in f64 and 3,684 in f32; m up to 30,976 and 69,632 at GuSTO's
+    n = 386), and none one variable and row, or one row, larger; the
+    dispatch still names the streaming kernel there, whose launch then
+    raises."""
+    plan = cluster_plan(n, m, elem, stream=True)
+    assert plan is not None and plan["block_bytes"] <= _SMEM_LIMIT
+    assert (plan["a_res"], plan["k_res"]) == (0, 0)
+    assert cluster_plan(*bigger, elem, stream=True) is None
+    assert kernel_for(*bigger, elem) == "admm_stream"

@@ -28,8 +28,9 @@ from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
 from soft_robot_control_tpu_torch.ops import build
 from soft_robot_control_tpu_torch.ops.admm_batched import (
     PLAN_FIELDS, _SIGNATURES, admm_batched, admm_batched_plain, admm_cluster,
-    admm_stream, batched_form, cluster_max_active, cluster_plan,
-    cluster_plan_built, kernel_for, qp_bytes)
+    admm_stream, batched_form, batched_form_built, block_layout,
+    block_layout_built, cluster_max_active, cluster_plan, cluster_plan_built,
+    kernel_for, qp_bytes, stream_max_active, stream_plan_built)
 from soft_robot_control_tpu_torch.ops.admm_single import (admm_single,
                                                           admm_single_plain,
                                                           prepare_single,
@@ -82,7 +83,7 @@ def _assert_close(got, ref, dtype, tol):
                                        (torch.float32, 1e-4)])
 def test_admm_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
     """Kernel 1 in its register form (f32 at the condensed LOCP's size and
-    at a ragged smaller one) and its shared form (f64, past 32 variables,
+    at a ragged smaller one) and its block form (f64, past 32 variables,
     and at the sizes of GuSTO's condensed LOCP with its trust region, odd
     n=21 and m=641, and of the LTI service's LOCP, n=80 and m=160), with
     infinite bounds on some rows, at a ragged B too."""
@@ -98,15 +99,17 @@ def test_admm_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
 
 
 @pytest.mark.parametrize("B,n,m", [(1, 380, 400), (3, 380, 400),
-                                   (5, 12, 16), (2, 70, 33),
+                                   (64, 380, 400), (5, 12, 16), (2, 70, 33),
+                                   (1, 386, 1126), (3, 386, 1126),
                                    (64, 386, 1126)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
 def test_stream_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
-    """Kernel 3 at the sparse LOCP's size, at GuSTO's sparse LOCP's (n=386,
-    not a multiple of 4, m=1126) and at sizes that exercise its
-    thread-group layout (several column groups, ragged warps), with
-    infinite bounds."""
+    """Kernel 3's streaming form at the sparse LOCP's size, at GuSTO's
+    sparse LOCP's (n=386, rows not a multiple of 16 bytes in f32, m=1126;
+    part of each block's rows walked in place) and at small ragged sizes
+    (every row resident, clusters of fewer than 8 blocks), with infinite
+    bounds, at B = 1, 3 and 64."""
     args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=n,
                                                    inf_rows=m // 8)]
     launches = admm_stream.launches
@@ -115,6 +118,113 @@ def test_stream_kernel_matches_plain(cuda_device, B, n, m, dtype, tol):
     torch.cuda.synchronize()
     assert admm_stream.launches == launches + 1
     _assert_close(got, ref, dtype, tol)
+
+
+def _shifted_and_strided(args):
+    """The same tensors as a view 4 bytes into its storage (no 16-byte
+    loads) and as a non-contiguous view of K^-1."""
+    shifted = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16 == args[0].element_size()
+    strided = [args[0].transpose(1, 2).contiguous().transpose(1, 2)] + args[1:]
+    return shifted, strided
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_stream_kernel_takes_unaligned_and_strided_inputs(cuda_device, dtype,
+                                                          tol):
+    """Unaligned rows walked in place and copied into shared memory element
+    by element, and a non-contiguous K^-1: the same answers."""
+    args = [t.to(cuda_device, dtype) for t in _qps(3, 386, 1126, seed=2,
+                                                   inf_rows=140)]
+    ref = admm_batched_plain(*args, 20)
+    for a in _shifted_and_strided(args):
+        got = admm_stream(*a, 20)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, dtype, tol)
+
+
+# the block form's shapes on the paths (GuSTO condensed, LTI, ROMPC,
+# Koopman MPC, the trunk SSM's sparse LOCP) and chip_smoke.py's (100, 120)
+BLOCK_SHAPES = [(21, 641), (80, 160), (80, 1), (40, 152), (48, 24),
+                (100, 120)]
+
+
+@pytest.mark.parametrize("n,m", BLOCK_SHAPES)
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_block_form_matches_plain(cuda_device, n, m, B, dtype, tol):
+    """Kernel 1's block form at the paths' shapes, at B = 1, 3 and 64, with
+    infinite bounds on a quarter of the rows: one launch, the plain
+    version's answer."""
+    args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=n + B,
+                                                   inf_rows=m // 8)]
+    assert batched_form(n, m, args[0].element_size()) == "block"
+    launches = admm_batched.launches
+    got = admm_batched(*args, 40)
+    ref = admm_batched_plain(*args, 40)
+    torch.cuda.synchronize()
+    assert admm_batched.launches == launches + 1
+    _assert_close(got, ref, dtype, tol)
+
+
+@pytest.mark.parametrize("B,n,m,dtype,tol", [
+    (133, 21, 641, torch.float32, 1e-4), (400, 21, 641, torch.float32, 1e-4),
+    (400, 40, 152, torch.float64, 1e-9)])
+def test_block_form_at_the_thread_counts_of_large_batches(cuda_device, B, n,
+                                                          m, dtype, tol):
+    """The block form where the batch puts two or three blocks on an SM,
+    so that its rule gives fewer threads than a lone block takes (512 and
+    320 where 672 and 544): the same answers."""
+    args = [t.to(cuda_device, dtype) for t in _qps(B, n, m, seed=4,
+                                                   inf_rows=m // 8)]
+    elem = args[0].element_size()
+    assert block_layout(B, n, m, elem)["threads"] < block_layout(
+        1, n, m, elem)["threads"]
+    got = admm_batched(*args, 30)
+    ref = admm_batched_plain(*args, 30)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+def test_block_form_takes_unaligned_and_strided_inputs(cuda_device, dtype,
+                                                       tol):
+    args = [t.to(cuda_device, dtype) for t in _qps(3, 40, 152, seed=3,
+                                                   inf_rows=19)]
+    ref = admm_batched_plain(*args, 30)
+    for a in _shifted_and_strided(args):
+        got = admm_batched(*a, 30)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, dtype, tol)
+
+
+def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device):
+    """The streaming kernel's largest square QP in f64 (n = m = 1842: its
+    vectors alone fill a block, every row is walked in place) runs, to 1e-9
+    of the solution's scale; one more variable and row, and the launch
+    raises."""
+    n = 1842
+    assert stream_plan_built(n, n, 8) == {
+        k: cluster_plan(n, n, 8, stream=True)[k] for k in PLAN_FIELDS}
+    assert stream_plan_built(n + 1, n + 1, 8) is None
+    args = [t.to(cuda_device) for t in _qps(1, n, n, seed=5, inf_rows=200)]
+    got = admm_stream(*args, 10)
+    ref = admm_batched_plain(*args, 10)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref)
+    _assert_close(got, ref, torch.float64, 1e-9 * max(scale, 1.0))
+    args = [t.to(cuda_device) for t in _qps(1, n + 1, n + 1, seed=5)]
+    launches = admm_stream.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_stream(*args, 10)
+    assert admm_stream.launches == launches
 
 
 # the sparse LOCP's size, ragged sizes (n, m not multiples of the cluster
@@ -153,14 +263,7 @@ def test_cluster_kernel_takes_unaligned_and_strided_inputs(cuda_device):
     non-contiguous one: same answers."""
     args = [t.to(cuda_device, torch.float32) for t in _qps(2, 64, 72, seed=1)]
     ref = admm_batched_plain(*args, 20)
-    shifted = []
-    for t in args:
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        buf[1:] = t.reshape(-1)
-        shifted.append(buf[1:].view(t.shape))
-    assert shifted[0].data_ptr() % 16 == 4
-    strided = [args[0].transpose(1, 2).contiguous().transpose(1, 2)] + args[1:]
-    for a in (shifted, strided):
+    for a in _shifted_and_strided(args):
         got = admm_cluster(*a, 20, cluster_size=4)
         torch.cuda.synchronize()
         _assert_close(got, ref, torch.float32, 1e-4)
@@ -197,9 +300,13 @@ def test_plan_agrees_with_the_built_sources(cuda_device, n, m, elem):
     lib = build.load("admm_batched", _SIGNATURES["admm_batched"])
     assert qp_bytes(n, m, elem) == lib.admm_batched_qp_bytes(n, m, elem)
     for nn, mm in ((n, m), (min(n, 32), min(m, 64)), (24, 48), (25, 48),
-                   (24, 49), (32, 65), (33, 64)):
-        assert lib.admm_batched_form(nn, mm, elem) == (
-            batched_form(nn, mm, elem) == "registers")
+                   (24, 49), (32, 65), (33, 64), (21, 641), (80, 160),
+                   (80, 1), (40, 152), (48, 24), (100, 120)):
+        assert batched_form_built(nn, mm, elem) == batched_form(nn, mm, elem)
+        for B in (1, 3, 64, 133, 1024):
+            if qp_bytes(nn, mm, elem) <= 232448:
+                assert block_layout_built(B, nn, mm, elem) == block_layout(
+                    B, nn, mm, elem)
     for R in (0, 1, 6, 8):
         want = cluster_plan(n, m, elem, R or None)
         got = cluster_plan_built(n, m, elem, R)
@@ -209,6 +316,10 @@ def test_plan_agrees_with_the_built_sources(cuda_device, n, m, elem):
             assert 1 <= cluster_max_active(n, m, elem, R) <= 132
     want = cluster_plan(n, m, elem, single=True)
     assert single_plan_built(n, m, elem) == {k: want[k] for k in PLAN_FIELDS}
+    want = cluster_plan(n, m, elem, stream=True)
+    assert stream_plan_built(n, m, elem) == {k: want[k] for k in PLAN_FIELDS}
+    # at most two blocks of 768 threads an SM
+    assert 1 <= stream_max_active(n, m, elem) <= 2 * 132 // want["R"]
 
 
 @pytest.mark.parametrize("n,m", [(380, 400), (30, 40), (70, 33), (252, 264),
@@ -455,7 +566,7 @@ def test_gusto_locps_on_the_card(cuda_device, monkeypatch, formulation,
                                  dtype):
     """The batched ADMM launch of GuSTO's fused loop at B=64, on the LOCPs
     of its first SCP iteration (per-problem A with the trust-region rows,
-    bounds of 1e30): kernel 1's shared form for the condensed LOCP (n=21,
+    bounds of 1e30): kernel 1's block form for the condensed LOCP (n=21,
     m=641), the streaming kernel for the sparse one (n=386, m=1126), against
     the plain version, in f64 to 1e-9 and in f32 to 1e-4 (condensed) and
     1e-2 (sparse: its 1e3 equality rho and 50 iterations amplify f32
@@ -569,7 +680,7 @@ def test_admm_kernel_on_ssm_locps(ssm_qps, name, formulation, n, m, B,
                                   dtype):
     """Kernel 1 on the LOCPs that BatchSSMMPC assembles: the condensed
     ones (one vacuous row with bounds of 1e30; in f32 the register form,
-    padded to n=24, m=48) and the sparse ones (the shared form; the init
+    padded to n=24, m=48) and the sparse ones (the block form; the init
     and dynamics rows with the 1e3 rho boost), against the plain version.
     f64: to 1e-9 of the solution's scale. f32: the kernel's error against
     the plain version in f64 on the same inputs within 2x the plain f32
@@ -584,7 +695,7 @@ def test_admm_kernel_on_ssm_locps(ssm_qps, name, formulation, n, m, B,
     args = [t[:B] if t.dim() > 1 else t for t in args]
     assert tuple(args[1].shape) == (B, m, n) and iters == 50
     assert batched_form(n, m, args[0].element_size()) == (
-        "registers" if dtype == torch.float32 and m == 1 else "shared")
+        "registers" if dtype == torch.float32 and m == 1 else "block")
     launches = admm_batched.launches
     got = admm_batched(*args, iters)
     ref = admm_batched_plain(*args, iters)
