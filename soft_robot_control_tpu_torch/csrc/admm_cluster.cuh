@@ -94,6 +94,7 @@ struct Plan {
   int resident;  // all of the slices in shared memory (1) or not (0)
   size_t smem;   // bytes of dynamic shared memory a block
   int ra, rk;    // leading rows of the A, K^-1 (M1) slice in shared memory
+  int xwin;      // x~ partials received in windows, then gathered (1)
 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -150,14 +151,24 @@ __host__ __device__ inline int row_stride(int n, int elem, int residency) {
   return residency == kSome ? up16(n, elem) : n;
 }
 
+// Bytes ahead of the arrays: two mbarriers, or three with the x~ gather.
+__host__ __device__ inline size_t barrier_bytes(int xwin) {
+  return xwin ? 2 * kBarrierBytes : kBarrierBytes;
+}
+
 // The plan for a cluster of at most R blocks with the given residency;
 // false when a block's share does not fit its shared memory. Shared memory
-// of a block: two mbarriers; the resident rows of its slices of A and K^-1
+// of a block: the mbarriers; the resident rows of its slices of A and K^-1
 // (row_stride each), the region padded to 16 bytes; q, w, rhs, x~ and the
 // block's own two partials (nw each); the R slots of x~ partials (nw each)
 // and of A^T t partials (rhs_slot each); l, u, z, y, t, rho (mr each) and,
 // in the M1 form, s (nr). kSome keeps as many rows as the rest leaves room
-// for, rows of A first.
+// for, rows of A first. Where kSome's vectors do not fit that way (n = m
+// past about 1,840 in f64), its x~ slots shrink to the A^T t slots'
+// windows (xwin): a block receives of each peer's x~ partial only the
+// window around its own rows, sums it, and sends its finished rows of x~
+// to every peer, a third exchange an iteration (about 8.75 n elements at
+// n = m, up to about 3,300 in f64 and 6,600 in f32).
 inline bool make_plan(int n, int m, int elem, int R, int V, int form,
                       int residency, Plan* p) {
   R = usable_cluster(n, R);
@@ -166,10 +177,17 @@ inline bool make_plan(int n, int m, int elem, int R, int V, int form,
   p->mr = ceil_div(m, R);
   p->nr = ceil_div(n, R);
   const size_t nw = up16(n, elem);
-  const size_t vec = (6 + (size_t)R) * nw +
-                     (size_t)R * rhs_slot(n, p->nr, elem, form) +
-                     6 * (size_t)p->mr + (form == kM1 ? p->nr : 0);
-  const size_t room = (kMaxSmem - kBarrierBytes) / (size_t)elem;
+  const size_t slot = rhs_slot(n, p->nr, elem, form);
+  const size_t rest = 6 * (size_t)p->mr + (form == kM1 ? p->nr : 0);
+  size_t vec = (6 + (size_t)R) * nw + (size_t)R * slot + rest;
+  p->xwin = 0;
+  if (residency == kSome && form == kKinv &&
+      vec > (kMaxSmem - barrier_bytes(0)) / (size_t)elem) {
+    p->xwin = 1;
+    vec = 6 * nw + 2 * (size_t)R * slot + rest;
+  }
+  const size_t bar = barrier_bytes(p->xwin);
+  const size_t room = (kMaxSmem - bar) / (size_t)elem;
   const int sld = row_stride(n, elem, residency);
   if (vec > room) return false;
   size_t rows = residency == kAll    ? (size_t)p->mr + p->nr
@@ -179,8 +197,7 @@ inline bool make_plan(int n, int m, int elem, int R, int V, int form,
   rows -= p->ra;
   p->rk = (int)(rows < (size_t)p->nr ? rows : (size_t)p->nr);
   p->resident = p->ra == p->mr && p->rk == p->nr;
-  p->smem = kBarrierBytes +
-            (up16((p->ra + p->rk) * sld, elem) + vec) * (size_t)elem;
+  p->smem = bar + (up16((p->ra + p->rk) * sld, elem) + vec) * (size_t)elem;
   return p->smem <= kMaxSmem;
 }
 
@@ -431,8 +448,10 @@ __device__ __forceinline__ T slots_sum(const T* slots, int R, int len,
 
 // One QP on the calling cluster; every thread of every block of the
 // cluster calls it with the same arguments, the pointers at the QP's own
-// data. K is K^-1 (kForm = kKinv, symmetric) or M1 (kForm = kM1).
-template <typename T, int kGV, int kForm, int kRes>
+// data. K is K^-1 (kForm = kKinv, symmetric) or M1 (kForm = kM1). kXW is
+// the plan's xwin: x~ partials received in windows and the finished rows
+// gathered (kKinv only).
+template <typename T, int kGV, int kForm, int kRes, bool kXW = false>
 __device__ __forceinline__ void solve(
     const T* __restrict__ K, const T* __restrict__ A,
     const T* __restrict__ q, const T* __restrict__ l,
@@ -458,7 +477,8 @@ __device__ __forceinline__ void solve(
 
   const uint32_t rs_bar = smem_addr(smem_raw);  // rhs partials are in
   const uint32_t xs_bar = rs_bar + 8;           // x~ partials are in
-  T* sA = reinterpret_cast<T*>(smem_raw + kBarrierBytes);
+  const uint32_t xg_bar = rs_bar + 16;         // x~ rows are in (kXW)
+  T* sA = reinterpret_cast<T*>(smem_raw + barrier_bytes(kXW));
   T* sK = sA + (size_t)p.ra * sld;  // ra = mr, rk = nr (kAll); 0 (kNone)
   T* sq = sA + up16((p.ra + p.rk) * sld, kElem);
   T* sw = sq + nw;
@@ -466,9 +486,10 @@ __device__ __forceinline__ void solve(
   T* sx = sr + nw;  // x~
   T* pa = sx + nw;  // this block's partial of A^T t, gathered for a bulk copy
   T* pk = pa + nw;  // this block's partial of x~, likewise
-  T* xs = pk + nw;  // R slots of nw: the blocks' partials of x~
-  T* rs = xs + (size_t)R * nw;  // R slots: the blocks' partials of A^T t
   const int rs_len = rhs_slot(n, nr, kElem, kForm);
+  const int xs_len = kXW ? rs_len : nw;
+  T* xs = pk + nw;  // R slots: the blocks' partials of x~ (or windows)
+  T* rs = xs + (size_t)R * xs_len;  // R slots: the blocks' A^T t partials
   T* sl = rs + (size_t)R * rs_len;
   T* su = sl + p.mr;
   T* sz = su + p.mr;
@@ -477,18 +498,31 @@ __device__ __forceinline__ void solve(
   T* sp = st + p.mr;  // rho
   T* ss = sp + p.mr;  // M1 rhs, the block's rows (M1 form only)
   const uint32_t xs_at = smem_addr(xs), rs_at = smem_addr(rs);
-  // bytes a phase receives: from each of the R blocks, its partial of x~,
-  // and its partial of A^T t over this block's window (all of it in the M1
-  // form)
-  const uint32_t xs_bytes = (uint32_t)(R * nw * kElem);
+  // The rows of x~ this block gathers to its peers (kXW): from its window's
+  // start to the next block's, so that the pieces tile [0, nw) on 16-byte
+  // boundaries; they lie inside the window, where its sums are complete.
+  int g_hi = nw;
+  if (rank + 1 < R) {
+    int lo1, hi1;
+    rhs_window(n, R, rank + 1, kElem, lo1, hi1);
+    g_hi = lo1;
+  }
+  // bytes a phase receives: from each of the R blocks, its partial of A^T t
+  // over this block's window (all of it in the M1 form) and its partial of
+  // x~ (over the same window with kXW); with kXW, every other block's
+  // finished rows of x~
+  const uint32_t xs_bytes = (uint32_t)(R * (kXW ? w_hi - w_lo : nw) * kElem);
   const uint32_t rs_bytes =
       (uint32_t)(R * (kForm == kM1 ? nw : w_hi - w_lo) * kElem);
+  const uint32_t xg_bytes = (uint32_t)((nw - (g_hi - w_lo)) * kElem);
   if (tid == 0) {
     barrier_init(rs_bar);
     barrier_init(xs_bar);
+    if constexpr (kXW) barrier_init(xg_bar);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     barrier_expect(rs_bar, rs_bytes);
     barrier_expect(xs_bar, xs_bytes);
+    if constexpr (kXW) barrier_expect(xg_bar, xg_bytes);
   }
 
   const int ra = p.ra < ma ? p.ra : ma, rk = p.rk < nk ? p.rk : nk;
@@ -560,15 +594,35 @@ __device__ __forceinline__ void solve(
     }
     fence_for_bulk();
     __syncthreads();
-    if (tid < R)
+    if (tid < R) {
+      int lo = 0, hi = nw;
+      if constexpr (kXW) rhs_window(n, R, tid, kElem, lo, hi);
       send_bulk(
-          remote_addr(xs_at + (uint32_t)((size_t)rank * nw * kElem), tid),
-          smem_addr(pk), (uint32_t)(nw * kElem), remote_addr(xs_bar, tid));
+          remote_addr(xs_at + (uint32_t)((size_t)rank * xs_len * kElem), tid),
+          smem_addr(pk + lo), (uint32_t)((hi - lo) * kElem),
+          remote_addr(xs_bar, tid));
+    }
     barrier_wait(xs_bar, parity, xs_bytes);
-    for (int i = tid; i < n; i += nthr) {
-      const T x = slots_sum(xs, R, nw, i);
-      sx[i] = x;
-      sw[i] = alpha * x + one_m_alpha * sw[i];
+    if constexpr (kXW) {
+      // this block's rows of x~ from the windows, then gathered: each peer
+      // sends its rows into the same place of every block's x~
+      for (int i = w_lo + tid; i < g_hi; i += nthr)
+        sx[i] = slots_sum(xs, R, xs_len, i - w_lo);
+      fence_for_bulk();
+      __syncthreads();
+      if (tid < R && tid != rank && g_hi > w_lo)
+        send_bulk(remote_addr(smem_addr(sx + w_lo), tid),
+                  smem_addr(sx + w_lo), (uint32_t)((g_hi - w_lo) * kElem),
+                  remote_addr(xg_bar, tid));
+      barrier_wait(xg_bar, parity, xg_bytes);
+      for (int i = tid; i < n; i += nthr)
+        sw[i] = alpha * sx[i] + one_m_alpha * sw[i];
+    } else {
+      for (int i = tid; i < n; i += nthr) {
+        const T x = slots_sum(xs, R, nw, i);
+        sx[i] = x;
+        sw[i] = alpha * x + one_m_alpha * sw[i];
+      }
     }
     __syncthreads();
     walk_rows<T, V>(mA, ma, n, sx, [&](int j, T zt) {  // A x~, own rows
@@ -634,8 +688,8 @@ int max_active_clusters(void (*kernel)(Params...), const Plan& p) {
   return err != cudaSuccess ? -(int)err : clusters;
 }
 
-// Fill out[0..7] with a plan for the wrappers and tests: R, V, mr, nr,
-// resident, bytes of shared memory a block, ra, rk.
+// Fill out[0..8] with a plan for the wrappers and tests: R, V, mr, nr,
+// resident, bytes of shared memory a block, ra, rk, xwin.
 inline void export_plan(const Plan& p, int* out) {
   out[0] = p.R;
   out[1] = p.V;
@@ -645,6 +699,7 @@ inline void export_plan(const Plan& p, int* out) {
   out[5] = (int)p.smem;
   out[6] = p.ra;
   out[7] = p.rk;
+  out[8] = p.xwin;
 }
 
 inline bool aligned16(const void* a, const void* b) {

@@ -34,7 +34,14 @@
 // load, the kernel took a quarter longer on an H100). The rest it walks
 // in place; the QPs in flight hold about 11 MB of such rows in f32, which
 // stay in the 50 MB L2. The partial sums travel through distributed shared
-// memory as in admm_cluster.cu, two exchanges an iteration. In f64 at
+// memory as in admm_cluster.cu, two exchanges an iteration. Where the eight
+// full-length slots of x~ partials would not leave the vectors room (n = m
+// past 1,842 in f64, 3,684 in f32), a block receives only the window of
+// each peer's x~ partial around its rows, sums it and sends its finished
+// rows to every peer: a third exchange an iteration, and the vectors then
+// take about 8.75 n elements (make_plan's xwin; n = m up to 3,312 in f64
+// and 6,624 in f32). The plan chooses it from the sizes alone, so the
+// paths' QPs keep the two exchanges. In f64 at
 // n=386 the rows walked in place for the QPs in flight pass the L2. A QP
 // whose matrices fit the cluster entirely takes the same path with every
 // row resident (a smaller one goes to admm_batched.cu or admm_cluster.cu
@@ -47,7 +54,7 @@ namespace {
 
 using namespace admm_cluster;
 
-template <typename T, int V>
+template <typename T, int V, bool XW>
 __global__ void __launch_bounds__(kThreads) admm_stream_kernel(
     const T* __restrict__ Kinv, const T* __restrict__ A,
     const T* __restrict__ q, const T* __restrict__ l,
@@ -56,10 +63,10 @@ __global__ void __launch_bounds__(kThreads) admm_stream_kernel(
     T* __restrict__ y_out, int n, int m, int iters, T sigma, T alpha,
     Plan p) {
   const size_t b = blockIdx.x / (unsigned)p.R;
-  solve<T, V, kKinv, kSome>(Kinv + b * n * n, A + b * m * n, q + b * n,
-                            l + b * m, u + b * m, rho, w0 + b * n,
-                            y0 + b * m, w_out + b * n, y_out + b * m, n, m,
-                            iters, sigma, alpha, p);
+  solve<T, V, kKinv, kSome, XW>(Kinv + b * n * n, A + b * m * n,
+                                q + b * n, l + b * m, u + b * m, rho,
+                                w0 + b * n, y0 + b * m, w_out + b * n,
+                                y_out + b * m, n, m, iters, sigma, alpha, p);
 }
 
 // The plan on a full cluster with as many rows resident as fit; false when
@@ -68,23 +75,32 @@ bool plan_for(int n, int m, int elem, int V, Plan* p) {
   return make_plan(n, m, elem, kMaxCluster, V, kKinv, kSome, p);
 }
 
+// f(kernel) with the instance for a vector width and the plan's x~
+// receive.
+template <typename T, typename F>
+int with_kernel(int V, int xwin, F f) {
+  constexpr int kV = 16 / sizeof(T);
+  if (V == kV)
+    return xwin ? f(admm_stream_kernel<T, kV, true>)
+                : f(admm_stream_kernel<T, kV, false>);
+  return xwin ? f(admm_stream_kernel<T, 1, true>)
+              : f(admm_stream_kernel<T, 1, false>);
+}
+
 template <typename T>
 int launch(const T* Kinv, const T* A, const T* q, const T* l, const T* u,
            const T* rho, const T* w0, const T* y0, T* w_out, T* y_out, int B,
            int n, int m, int iters, double sigma, double alpha,
            void* stream) {
-  constexpr int kV = 16 / sizeof(T);
   const int V = aligned16(Kinv, A) ? vector_width(n, sizeof(T)) : 1;
   Plan p;
   if (!plan_for(n, m, sizeof(T), V, &p)) return -1;
   if (B <= 0) return 0;
-  if (V == kV)
-    return launch_clusters(admm_stream_kernel<T, kV>, p, B, stream, Kinv, A,
-                           q, l, u, rho, w0, y0, w_out, y_out, n, m, iters,
-                           (T)sigma, (T)alpha, p);
-  return launch_clusters(admm_stream_kernel<T, 1>, p, B, stream, Kinv, A, q,
-                         l, u, rho, w0, y0, w_out, y_out, n, m, iters,
-                         (T)sigma, (T)alpha, p);
+  return with_kernel<T>(V, p.xwin, [&](auto kernel) {
+    return launch_clusters(kernel, p, B, stream, Kinv, A, q, l, u, rho, w0,
+                           y0, w_out, y_out, n, m, iters, (T)sigma,
+                           (T)alpha, p);
+  });
 }
 
 }  // namespace
@@ -106,11 +122,11 @@ int admm_stream_max_active(int n, int m, int elem) {
   Plan p;
   const int V = vector_width(n, elem);
   if (!plan_for(n, m, elem, V, &p)) return -1;
-  if (elem == 4)
-    return V == 4 ? max_active_clusters(admm_stream_kernel<float, 4>, p)
-                  : max_active_clusters(admm_stream_kernel<float, 1>, p);
-  return V == 2 ? max_active_clusters(admm_stream_kernel<double, 2>, p)
-                : max_active_clusters(admm_stream_kernel<double, 1>, p);
+  const auto active = [&](auto kernel) {
+    return max_active_clusters(kernel, p);
+  };
+  if (elem == 4) return with_kernel<float>(V, p.xwin, active);
+  return with_kernel<double>(V, p.xwin, active);
 }
 
 int admm_stream_f32(const float* Kinv, const float* A, const float* q,

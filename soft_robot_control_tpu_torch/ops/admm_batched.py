@@ -22,10 +22,11 @@ three hand-written CUDA kernels that compute the same function:
   f64): each block keeps as many leading rows of its slices in shared memory
   as fit, rows of A first, and walks the rest in place through L2
   (`cluster_plan(..., stream=True)`). It is bound by those walks and the
-  chain of phases. Its vectors alone must fit a block (about 15.75 n
-  elements at n = m): n = m up to 1,842 in float64 and 3,684 in float32,
-  where the earlier one-block design took 2,641 and 5,282; larger QPs
-  raise.
+  chain of phases. Its vectors alone must fit a block: with full-length
+  slots for the peers' x~ partials about 15.75 n elements at n = m; past
+  that (n = m beyond 1,842 in float64, 3,684 in float32) it receives x~ in
+  windows and gathers it, about 8.75 n, up to n = m = 3,312 in float64 and
+  6,624 in float32; larger QPs raise.
 
 `admm_batched` picks among them from the QP's size and element type alone
 (`kernel_for` is the same rule in Python, `cluster_plan` the layout of a QP
@@ -77,7 +78,7 @@ _SIGNATURES = {
 }
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 PLAN_FIELDS = ("R", "V", "a_rows", "k_rows", "resident", "block_bytes",
-               "a_res", "k_res")
+               "a_res", "k_res", "x_window")
 
 
 def qp_bytes(n: int, m: int, elem_size: int) -> int:
@@ -161,15 +162,19 @@ def cluster_plan(n: int, m: int, elem_size: int, R: int | None = None,
     single-QP kernel (`single`, M1 form) always asks for 8 and walks the
     matrices in place (`resident` False) where they do not fit; the
     streaming kernel (`stream`) asks for 8 and keeps as many leading rows
-    of a block's slices as fit, rows of A first. The dict holds R, V
+    of a block's slices as fit, rows of A first, and, where R slots of
+    full x~ partials leave its vectors no room, receives x~ in windows
+    (`x_window`: each block sums the windows around its rows of the
+    peers' x~ partials and gathers the finished rows to every peer). The
+    dict holds R, V
     (elements a 16-byte load, 1 for ragged rows), a_rows and k_rows (rows
     of A and of K^-1 or M1 a block owns at most), resident (all of them in
-    shared memory), block_bytes (shared memory a block: two barriers, the
-    resident rows (for `stream` each padded with zeros to n rounded up to
+    shared memory), block_bytes (shared memory a block: two barriers,
+    three with x_window, the resident rows (for `stream` each padded with zeros to n rounded up to
     16 bytes; the region padded to 16 bytes), q, w, rhs, x~ and the
     block's own two partials (n rounded up to 16 bytes each), R slots for
-    the peers' partials of x~ and R of A^T t, six vectors of the block's
-    rows and, for M1, s),
+    the peers' partials of x~ (rhs_slot each with x_window) and R of
+    A^T t, six vectors of the block's rows and, for M1, s), x_window,
     a_res and k_res (the leading rows of a block's slices of A and of K^-1
     or M1 kept in shared memory), rhs_slot (elements of a slot of A^T t
     partials: a window of `rhs_window`, or all n for M1), and a_slices,
@@ -184,8 +189,15 @@ def cluster_plan(n: int, m: int, elem_size: int, R: int | None = None,
         R = usable_cluster(n, R)
         mr, nr = _ceil_div(m, R), _ceil_div(n, R)
         slot = up16(n) if single else up16(nr + 2 * (W - 1))
-        vec = (6 + R) * up16(n) + R * slot + 6 * mr + (nr if single else 0)
-        room = (_SMEM_LIMIT - 16) // elem_size
+        rest = 6 * mr + (nr if single else 0)
+        vec = (6 + R) * up16(n) + R * slot + rest
+        bar = 16
+        x_window = (residency == "some"
+                    and vec > (_SMEM_LIMIT - bar) // elem_size)
+        if x_window:
+            bar = 32
+            vec = 6 * up16(n) + 2 * R * slot + rest
+        room = (_SMEM_LIMIT - bar) // elem_size
         if vec > room:
             return None
         rows = {"all": mr + nr, "none": 0}.get(residency,
@@ -193,12 +205,12 @@ def cluster_plan(n: int, m: int, elem_size: int, R: int | None = None,
         ra = min(rows, mr)
         rk = min(rows - ra, nr)
         sld = up16(n) if residency == "some" else n
-        nbytes = 16 + (up16((ra + rk) * sld) + vec) * elem_size
+        nbytes = bar + (up16((ra + rk) * sld) + vec) * elem_size
         if nbytes > _SMEM_LIMIT:
             return None
         return dict(R=R, V=V, a_rows=mr, k_rows=nr,
                     resident=ra == mr and rk == nr, block_bytes=nbytes,
-                    a_res=ra, k_res=rk, rhs_slot=slot,
+                    a_res=ra, k_res=rk, x_window=x_window, rhs_slot=slot,
                     a_slices=row_slices(m, R), k_slices=row_slices(n, R))
 
     if single:
@@ -287,8 +299,8 @@ def admm_stream(Kinv, A, q, l, u, rho_vec, w0, y0, iters: int,
                 sigma: float = 1e-6, alpha: float = 1.6):
     """B fixed-iteration ADMM solves through the streaming kernel, a cluster
     of 8 blocks a QP with what does not fit their shared memory walked in
-    place, whatever the QP's size up to vectors that fit (n = m up to 1,842
-    in float64, 3,684 in float32; see admm_batched_plain for the shapes).
+    place, whatever the QP's size up to vectors that fit (n = m up to 3,312
+    in float64, 6,624 in float32; see admm_batched_plain for the shapes).
     CPU tensors go through the plain version."""
     if Kinv.device.type == "cpu":
         return admm_batched_plain(Kinv, A, q, l, u, rho_vec, w0, y0, iters,
@@ -301,7 +313,8 @@ def exported_plan(out) -> dict:
     """The integers a .cu source's export_plan wrote, as cluster_plan's
     dict (without rhs_slot and the slices)."""
     plan = dict(zip(PLAN_FIELDS, out))
-    plan.update(resident=bool(plan["resident"]))
+    plan.update(resident=bool(plan["resident"]),
+                x_window=bool(plan["x_window"]))
     return plan
 
 

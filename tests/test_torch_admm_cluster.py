@@ -299,17 +299,38 @@ def test_stream_plan_keeps_rows_of_a_first(n, m, elem, a_res, k_res):
 
 
 @pytest.mark.parametrize("n,m,elem,bigger", [
-    (1842, 1842, 8, (1843, 1843)), (3684, 3684, 4, (3685, 3685)),
-    (386, 30976, 8, (386, 30977)), (386, 69632, 4, (386, 69633))])
+    (3312, 3312, 8, (3313, 3313)), (6624, 6624, 4, (6625, 6625)),
+    (386, 34536, 8, (386, 34537)), (386, 73168, 4, (386, 73169))])
 def test_stream_plan_ends_where_its_vectors_fill_a_block(n, m, elem, bigger):
     """The streaming kernel's limit: a QP has a plan while its vectors fit
-    a block's shared memory, every row then walked in place (n = m up to
-    1,842 in f64 and 3,684 in f32; m up to 30,976 and 69,632 at GuSTO's
-    n = 386), and none one variable and row, or one row, larger; the
-    dispatch still names the streaming kernel there, whose launch then
-    raises."""
+    a block's shared memory, x~ received in windows and every row walked in
+    place (n = m up to 3,312 in f64 and 6,624 in f32; m up to 34,536 and
+    73,168 at GuSTO's n = 386), and none one variable and row, or one row,
+    larger; the dispatch still names the streaming kernel there, whose
+    launch then raises."""
     plan = cluster_plan(n, m, elem, stream=True)
     assert plan is not None and plan["block_bytes"] <= _SMEM_LIMIT
-    assert (plan["a_res"], plan["k_res"]) == (0, 0)
+    assert (plan["a_res"], plan["k_res"]) == (0, 0) and plan["x_window"]
     assert cluster_plan(*bigger, elem, stream=True) is None
     assert kernel_for(*bigger, elem) == "admm_stream"
+
+
+@pytest.mark.parametrize("n,elem", [(1842, 8), (3684, 4)])
+def test_stream_plan_windows_x_only_past_the_full_slots(n, elem):
+    """The streaming kernel keeps full-length slots for the peers' x~
+    partials (two exchanges an iteration) while its vectors fit that way,
+    up to n = m = 1,842 in f64 and 3,684 in f32, so the paths' QPs keep
+    them; one variable and row more and it receives x~ in windows (a third
+    exchange), with the vectors in about 8.75 n elements and three barriers
+    ahead of them."""
+    for shape in ((386, 1126), (380, 400), (n, n)):
+        assert not cluster_plan(*shape, elem, stream=True)["x_window"]
+    plan = cluster_plan(n + 1, n + 1, elem, stream=True)
+    W = 16 // elem
+    nw = -(-(n + 1) // W) * W
+    vec = 6 * nw + 2 * 8 * plan["rhs_slot"] + 6 * plan["a_rows"]
+    assert plan["x_window"] and plan["R"] == 8
+    rows = plan["a_res"] + plan["k_res"]
+    assert plan["block_bytes"] == 32 + (
+        -(-rows * nw // W) * W + vec) * elem <= _SMEM_LIMIT
+    assert vec <= 8.75 * (n + 1) + 64 * W  # the slots' 16-byte padding

@@ -45,17 +45,21 @@ from soft_robot_control_tpu_torch.sim.closed_loop import run_closed_loop
 pytestmark = pytest.mark.cuda
 
 
-def _qps(B, n, m, seed, inf_rows=0):
-    """Random feasible QPs with K^-1 from the port's make_kinv (f64); the
-    first `inf_rows` rows have no lower bound, the next as many no upper."""
+def _qps(B, n, m, seed, inf_rows=0, rank=None, device="cpu"):
+    """Random feasible QPs with K^-1 from the port's make_kinv (f64, on
+    `device`); P = Ph Ph^T + 0.1 I with Ph of `rank` columns (n by
+    default); the first `inf_rows` rows have no lower bound, the next as
+    many no upper."""
     rng = np.random.default_rng(seed)
-    Ph = rng.normal(size=(B, n, n))
-    P = torch.as_tensor(Ph @ Ph.transpose(0, 2, 1) + 0.1 * np.eye(n))
+    Ph = rng.normal(size=(B, n, rank or n))
+    P = torch.as_tensor(Ph, device=device)
+    P = P @ P.transpose(1, 2) + 0.1 * torch.eye(n, dtype=P.dtype,
+                                                device=device)
     A = rng.normal(size=(B, m, n))
     mid = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.2)
     rho = torch.full((m,), 0.1, dtype=torch.float64)
     A = torch.as_tensor(A)
-    Kinv = make_kinv(P, A, rho)
+    Kinv = make_kinv(P, A.to(device), rho.to(device)).cpu()
     l = mid - rng.uniform(0.1, 1, (B, m))
     u = mid + rng.uniform(0.1, 1, (B, m))
     l[:, :inf_rows] = -np.inf
@@ -205,22 +209,45 @@ def test_block_form_takes_unaligned_and_strided_inputs(cuda_device, dtype,
         _assert_close(got, ref, dtype, tol)
 
 
-def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device):
-    """The streaming kernel's largest square QP in f64 (n = m = 1842: its
-    vectors alone fill a block, every row is walked in place) runs, to 1e-9
-    of the solution's scale; one more variable and row, and the launch
-    raises."""
-    n = 1842
-    assert stream_plan_built(n, n, 8) == {
-        k: cluster_plan(n, n, 8, stream=True)[k] for k in PLAN_FIELDS}
-    assert stream_plan_built(n + 1, n + 1, 8) is None
-    args = [t.to(cuda_device) for t in _qps(1, n, n, seed=5, inf_rows=200)]
+@pytest.mark.parametrize("n,dtype", [(3312, torch.float64),
+                                     (6624, torch.float32),
+                                     (2641, torch.float64)])
+def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device, n, dtype):
+    """The streaming kernel's largest square QPs (n = m = 3,312 in f64 and
+    6,624 in f32: x~ received in windows, its vectors fill a block, every
+    row is walked in place) and the earlier one-block design's f64 end
+    (2,641, which the full-slot plan refused) run. In f64 within 1e-9 of
+    the solution's scale of the plain version. In f32 each of the 6,624
+    terms of a sum rounds, and the two sum in other orders (the plain
+    version measured 9e-4 of the scale from the kernel on an H100): the
+    kernel's error against the plain version in f64 on the same inputs is
+    held within twice the plain f32 version's (SSM_F32_ROUNDING_RATIO's
+    rule in chip_smoke.py). One more variable and row past the end, and
+    the launch raises."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    plan = stream_plan_built(n, n, elem)
+    assert plan == {k: cluster_plan(n, n, elem, stream=True)[k]
+                    for k in PLAN_FIELDS}
+    assert plan["x_window"]
+    args = [t.to(cuda_device, dtype) for t in _qps(
+        1, n, n, seed=5, inf_rows=200, rank=64, device=cuda_device)]
     got = admm_stream(*args, 10)
     ref = admm_batched_plain(*args, 10)
+    exact = admm_batched_plain(*[t.double() for t in args], 10)
     torch.cuda.synchronize()
-    scale = max(float(r.abs().max()) for r in ref)
-    _assert_close(got, ref, torch.float64, 1e-9 * max(scale, 1.0))
-    args = [t.to(cuda_device) for t in _qps(1, n + 1, n + 1, seed=5)]
+    scale = max(max(float(r.abs().max()) for r in exact), 1.0)
+    for a, b, e in zip(got, ref, exact):
+        assert bool(torch.isfinite(a).all())
+        if dtype == torch.float64:
+            assert float((a - b).abs().max()) <= 1e-9 * scale
+        else:
+            plain_err = float((b.double() - e).abs().max())
+            assert float((a.double() - e).abs().max()) <= 2.0 * plain_err
+    if n == 2641:
+        return
+    assert stream_plan_built(n + 1, n + 1, elem) is None
+    args = [t.to(cuda_device, dtype) for t in _qps(
+        1, n + 1, n + 1, seed=5, rank=8, device=cuda_device)]
     launches = admm_stream.launches
     with pytest.raises(ValueError, match="shared memory"):
         admm_stream(*args, 10)
