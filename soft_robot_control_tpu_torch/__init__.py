@@ -17,3 +17,8 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from soft_robot_control_tpu_torch.core import (constraints, discretize,  # noqa: E402,F401
+                                               packing, types)

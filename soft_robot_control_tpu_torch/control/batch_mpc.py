@@ -47,7 +47,9 @@ from soft_robot_control_tpu_torch.ops.admm_batched import (admm_batched,
 from soft_robot_control_tpu_torch.ops.admm_single import admm_fixed_single
 from soft_robot_control_tpu_torch.qp.admm import (OSQP_RHO_EQ_SCALE, RHO_MAX,
                                                   RHO_MIN, _ruiz_equilibrate)
-from soft_robot_control_tpu_torch.qp.blocked import make_kinv
+from soft_robot_control_tpu_torch.qp.blocked import (chol_blocked,  # noqa: F401
+                                                     make_kinv,
+                                                     tri_inv_blocked)
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams, LOCPSpec
 from soft_robot_control_tpu_torch.scp.locp_condensed import (CondensedParams,
                                                              CondensedSpec)
@@ -159,6 +161,16 @@ def admm_staged_batched(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
             mult = _rho_multiplier(P, q, A, l, u, w, y)
             rho = torch.clamp(rho * mult[:, None], RHO_MIN, RHO_MAX)
     return w, y
+
+
+def admm_staged_pallas(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
+                       stages: int, interpret: bool = False, sigma=1e-6,
+                       alpha=1.6):
+    """The JAX package's name and arguments for `admm_staged_batched`.
+    `interpret` runs the Pallas kernel in interpret mode on a TPU; it has
+    no meaning here and is ignored."""
+    return admm_staged_batched(P, q, A, l, u, w0, y0, rho0_vec, iters,
+                               stages, sigma, alpha)
 
 
 class BatchMPC:

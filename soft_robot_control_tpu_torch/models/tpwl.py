@@ -252,13 +252,7 @@ class TPWLModel:
     def rollout(self, x0, u, dt):
         """Roll one trajectory forward: x (N+1, n_x), z (N+1, n_z) or None
         without an output model; one select launch a step."""
-        x = torch.as_tensor(x0, dtype=self.q.dtype, device=self.device)
-        u = torch.as_tensor(u, dtype=self.q.dtype, device=self.device)
-        xs = [x]
-        for k in range(u.shape[0]):
-            x = self.update_state(x, u[k], dt)
-            xs.append(x)
-        x = torch.stack(xs)
+        x = rollout(self, x0, u, dt)
         z = self.x_to_zfyf(x, zf=True) if self.H is not None else None
         return x, z
 
@@ -285,6 +279,21 @@ class TPWLModel:
 
         return tpwl_select(x, self.q, self.v, self.A_d, self.B_d, self.d_d,
                            self.dist_w_q, self.dist_w_v, index_only)
+
+
+def rollout(model: TPWLModel, x0, u, dt):
+    """Roll the TPWL dynamics from x0 (n_x,) under u (N, n_u): the states
+    x (N+1, n_x), the JAX function's result. In 'nn' mode each step takes
+    the pre-discretized tables when dt equals pre_discretized_dt, else the
+    continuous ones discretized at dt (`get_jacobians`), one launch of the
+    select kernel a step."""
+    x = as_tensor(x0, model.q.dtype, model.device)
+    u = as_tensor(u, model.q.dtype, model.device)
+    xs = [x]
+    for k in range(u.shape[0]):
+        x = model.update_state(x, u[k], dt)
+        xs.append(x)
+    return torch.stack(xs)
 
 
 def shift_reference(z, y, z_ref, y_ref, sign):

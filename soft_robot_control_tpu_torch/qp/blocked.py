@@ -4,12 +4,28 @@ The JAX package builds K^-1 from blocked Cholesky and triangular-inverse
 routines that only work around the TPU's row-sequential factorizations;
 here the batched `torch.linalg.cholesky` and `solve_triangular` take their
 place. The Jacobi scaling and the one Newton step on the triangular
-inverse stay: they keep the f32 error near kappa(L_s) eps.
+inverse stay: they keep the f32 error near kappa(L_s) eps. `chol_blocked`
+and `tri_inv_blocked` keep the JAX names and arguments over the same
+library calls (the blocking has no purpose on the card).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def tri_inv_blocked(L, leaf: int = 64):
+    """Inverse of the lower-triangular L (..., n, n) by a batched
+    triangular solve. `leaf`, the JAX package's block size, is accepted
+    and ignored."""
+    I = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, I.expand_as(L), upper=False)
+
+
+def chol_blocked(K, leaf: int = 64):
+    """Lower Cholesky factor of the symmetric positive definite K
+    (..., n, n). `leaf` is accepted and ignored, as in tri_inv_blocked."""
+    return torch.linalg.cholesky(K)
 
 
 def make_kinv(P, A, rho_vec, sigma=1e-6):

@@ -1,6 +1,7 @@
 """Artifact IO: the pickle format of the reference TPWL/POD artifacts
 (sofacontrol/utils.py:148-159), as the JAX package's utils/io.py reads and
-writes it. Unpickling runs code, so only load artifacts this project wrote."""
+writes it, and MATLAB .mat files (the SSM and Koopman artifacts). Unpickling
+runs code, so only load artifacts this project wrote."""
 
 from __future__ import annotations
 
@@ -20,3 +21,12 @@ def save_data(filename: str, data: Any) -> None:
 def load_data(filename: str) -> Any:
     with open(filename, "rb") as f:
         return pickle.load(f)
+
+
+def load_mat(filename: str) -> dict:
+    """Load a MATLAB .mat file with scipy.io; struct arrays stay as they
+    are, so that the reference's ``model['w_coeff'][0, 0]`` indexing
+    works."""
+    from scipy.io import loadmat
+
+    return loadmat(filename)

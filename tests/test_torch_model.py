@@ -148,3 +148,20 @@ def test_rollout_batch_refuses_as_jax_does():
         with pytest.raises(ValueError, match=msg):
             ttpwl.rollout_batch(tm, torch.as_tensor(x0), torch.as_tensor(u),
                                 0.02, select=select)
+
+
+@pytest.mark.parametrize("dt", [0.01, 0.02])
+def test_rollout_is_the_jax_function(dt):
+    """models/tpwl.py:rollout(model, x0, u, dt) on the campaign dictionary:
+    x only, from a dictionary point, at the cached dt (the pre-discretized
+    tables) and at a dt without the cache (the continuous rows discretized
+    a step), as the JAX function; the method's x is the same."""
+    jm, tm = _campaign_models()
+    x0 = np.concatenate((np.asarray(jm.v)[7], np.asarray(jm.q)[7]))
+    u = _cable_inputs(1, 12, dt)[0]
+    ref = np.asarray(jtpwl.rollout(jm, jnp.asarray(x0), jnp.asarray(u), dt))
+    got = ttpwl.rollout(tm, torch.as_tensor(x0), torch.as_tensor(u), dt)
+    assert got.shape == ref.shape == (13, 60)
+    _assert_same_trajectory(got, ref)
+    x, z = tm.rollout(torch.as_tensor(x0), torch.as_tensor(u), dt)
+    assert torch.equal(x, got) and z.shape == (13, 3)
