@@ -29,7 +29,11 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (admm_cluster, QP held across a thread-block cluster's shared memory) in f32 and, since the f64 QP of
    that size fits no cluster, in f64 on the same loop's QPs at horizon 3
    (n=252, m=264). The clusters the card holds at one time are printed,
-   and clusters of 6 and of 8 blocks are timed in turns;
+   and clusters of 6 and of 8 blocks are timed in turns. Then the
+   streaming kernel's range: where its plan for square QPs ends in f32
+   and f64 (the built source against the Python plan), and one f64 QP at
+   n = m = 2641 (past the full-slot plan's end: x~ received in windows)
+   held to its plain version within ADMM_F64_TOL of the solution's scale;
 6. kernel 4 (single-QP ADMM through M1, one cluster) against its plain
    version on one such QP prepared as the single-trajectory loop prepares
    it, f64 (walked in place through L2) and f32 (resident), 50 iterations;
@@ -136,7 +140,22 @@ the tolerances stated below.
    the delay, f64 on the card against f64 on the CPU: ilqr (tf = 0.2 s, 20
    steps, iLQRConfig defaults; launches of kernel 2 an iteration),
    TrajTracking along a rollout of the dictionary, StateDLQR and StateCLQR
-   at a dictionary point; ms a policy computation.
+   at a dictionary point; ms a policy computation;
+22. the Diamond pipeline (tasks/recipes.py over robots/robots.py,
+   control/sequences.py, rom/pod.py, sim/fem_surrogate.py and
+   models/tpwl_build.py), in f64: (a) examples/diamond_pipeline.py's
+   settings (DiamondRobot(n_nodes=10), dt 0.02: POD data, the basis, the
+   dictionary, the rollout check, run_scp with the EKF for 5 s, the
+   summary) on the card and on the CPU: the same r and selected steps,
+   the basis, the dictionary and the rollout within PIPE_F64_TOL, the
+   closed loop at the golden test's tolerances; kernel 2 once a rollout
+   step, its launches a GuSTO query counted; stage wall times, tracking
+   MSE, solve times; (b) the offline half at the Diamond mesh's 1628 nodes
+   (a 3,256-entry state) at the recipes' defaults and r = 30: each stage's
+   wall time and device-busy share, the plant step, the dictionary's
+   size, the peak device memory, the rollout's rel_err; the first 20
+   excited plant steps against the f64 CPU run, the basis' orthonormality;
+   kernel 2 held to its plain version on its first launch (B=1) and timed.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Each timed kernel row prints the kernel's earlier time on the card
@@ -194,7 +213,7 @@ from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
 from soft_robot_control_tpu_torch.ops.admm_batched import (  # noqa: E402
     admm_batched, admm_batched_plain, admm_cluster, admm_stream,
-    cluster_max_active, cluster_plan_built, stream_max_active,
+    cluster_max_active, cluster_plan, cluster_plan_built, stream_max_active,
     stream_plan_built)
 from soft_robot_control_tpu_torch.ops.admm_single import (  # noqa: E402
     admm_single, admm_single_plain, prepare_single)
@@ -202,6 +221,7 @@ from soft_robot_control_tpu_torch.ops import tpwl_select as select_ops  # noqa: 
 from soft_robot_control_tpu_torch.ops.tpwl_select import (  # noqa: E402
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv  # noqa: E402
+from soft_robot_control_tpu_torch.robots import DiamondRobot  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit  # noqa: E402
@@ -213,8 +233,15 @@ from soft_robot_control_tpu_torch.scp.standalone import (  # noqa: E402
     run_gusto_standalone)
 from soft_robot_control_tpu_torch.sim.closed_loop import (  # noqa: E402
     run_closed_loop)
+from soft_robot_control_tpu_torch.sim.fem_surrogate import (  # noqa: E402
+    simulate)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
     linearModel)
+from soft_robot_control_tpu_torch.tasks import recipes  # noqa: E402
+from soft_robot_control_tpu_torch.tasks.analysis import (  # noqa: E402
+    summarize)
+from soft_robot_control_tpu_torch.tasks.targets import (  # noqa: E402
+    sine_setpoint)
 from soft_robot_control_tpu_torch.utils.device import to_numpy  # noqa: E402
 
 ARTIFACT = os.path.join(HERE, "examples", "diamond_tet",
@@ -262,6 +289,9 @@ RT_QUERIES = 4              # MPC queries of the real-time GuSTO path
 # region slack's s >= 0 row is still violated when the residual gate reads
 # it, and the loop spends its 30 iterations re-solving the first QP
 RT_QP_ITERS = 1000
+# the streaming kernel's square f64 QP at the earlier one-block design's
+# end (phase 5): beyond the full-slot plan, within the windowed one
+STREAM_OLD_END = 2641
 LTI_N, LTI_STEPS = 20, 3    # LTI service horizon; steps held to the CPU
 # GuSTO's sparse LOCP (1e3 rho on 360 equality rows, a trust region, 50
 # iterations) amplifies f32 rounding more than path A's: the streaming
@@ -308,21 +338,23 @@ SSM_F32_TOL = {"condensed": 2e-2, "sparse": 1.5e-1}
 # version's own f32 error at 0.9-1.4x the raw limit, so no other summation
 # order can meet the raw limit there
 SSM_F32_ROUNDING_RATIO = 2.0
-# Earlier card times of the batched ADMM kernels at the paths' shapes, f32
-# (PERF.md section 6's kernel table, H100 80GB HBM3, 700 W), printed beside
-# this run's: (kernel, B, n, m, iterations) -> (row, ms)
+# Earlier card times of the batched ADMM kernels at the paths' shapes
+# (PERF.md section 6's kernel table, H100 80GB HBM3, 700 W), printed beside this run's: (kernel, B, n, m, iterations, element
+# bytes) -> (row, ms)
 EARLIER_MS = {
-    ("admm_batched", 1024, 20, 40, 25): ("1", 0.0196),
-    ("admm_batched", 64, 21, 641, 50): ("1b", 0.6931),
-    ("admm_batched", 1, 80, 160, 37): ("1c", 0.3550),
-    ("admm_batched", 1024, 24, 1, 50): ("1d", 0.0354),
-    ("admm_batched", 1024, 48, 24, 50): ("1e", 0.1358),
-    ("admm_batched", 1, 80, 1, 37): ("1f", 0.1212),
-    ("admm_batched", 1, 40, 152, 100): ("1g", 0.5775),
-    ("admm_cluster", 1024, 380, 400, 25): ("3", 6.97),
-    ("admm_stream", 1024, 380, 400, 25): ("3b", 17.39),
-    ("admm_stream", 64, 386, 1126, 50): ("3c", 9.6647),
-    ("admm_single", 1, 380, 400, 50): ("4", 0.269)}
+    ("admm_batched", 1024, 20, 40, 25, 4): ("1", 0.0197),
+    ("admm_batched", 64, 21, 641, 50, 4): ("1b", 0.1515),
+    ("admm_batched", 1, 80, 160, 37, 4): ("1c", 0.1162),
+    ("admm_batched", 1024, 24, 1, 50, 4): ("1d", 0.0354),
+    ("admm_batched", 1024, 48, 24, 50, 4): ("1e", 0.1254),
+    ("admm_batched", 1, 80, 1, 37, 4): ("1f", 0.0789),
+    ("admm_batched", 1, 40, 152, 100, 4): ("1g", 0.2089),
+    ("admm_cluster", 1024, 380, 400, 25, 4): ("3", 6.6630),
+    ("admm_stream", 1024, 380, 400, 25, 4): ("3b", 8.6404),
+    ("admm_stream", 1024, 380, 400, 25, 8): ("3b f64", 16.1219),
+    ("admm_stream", 64, 386, 1126, 50, 4): ("3c", 3.4413),
+    ("admm_stream", 64, 386, 1126, 50, 8): ("3c f64", 7.3987),
+    ("admm_single", 1, 380, 400, 50, 4): ("4", 0.2618)}
 # The stage LOCP (phase 15): bench.py section 4b's settings
 STAGE_N, STAGE_ITERS, STAGE_RUNS = 200, 100, 3
 # f32 against f64 there, w over its scale: cyclic reduction's explicit
@@ -371,6 +403,28 @@ CAMPAIGN_GUSTO = dict(max_gusto_iters=0, convg_thresh=1e-2,
 # measured on an H100 80GB HBM3 at 3.7e-3 (2.8e-3 in a CPU rehearsal; the
 # f32 DARE gains at R = 1e-5 I read 2.7e-6 of their scale from f64)
 CAMPAIGN_F32_TOL = 2e-2
+# The Diamond pipeline (phase 22): examples/diamond_pipeline.py's settings
+# (a), then the offline half at the Diamond mesh's 1628 nodes (b), whose
+# state has 3,256 entries (robots/environments.py:144's mesh; the dense
+# Jacobian of a step is 85 MB in f64), at the recipes' defaults and the
+# campaign's r = 30. Its artifacts go under build/pipeline.
+PIPE_DIR = os.path.join(HERE, "build", "pipeline")
+PIPE_WIDE_NODES = 1628
+PIPE_WIDE_R = 30
+# (a) f64 card run against the f64 CPU run: snapshots, the POD basis (up to
+# each column's sign), the dictionary's points and matrices and the
+# rollout's z within this fraction of their scale (the same f64 arithmetic
+# summed in other orders; the port's f64 CPU run against the JAX package
+# reads 8e-13 on the basis, tests/test_torch_recipes.py); the closed loop
+# at the golden test's tolerances (GOLDEN_Z_TOL, GOLDEN_U_TOL)
+PIPE_F64_TOL = 1e-9
+# (b) the first steps of the wide sweep after the excitation starts, on the
+# card against the port's f64 CPU run, and the basis' orthonormality
+PIPE_WIDE_STEPS = 20
+PIPE_WIDE_TOL = 1e-9
+PIPE_ORTHO_TOL = 1e-10
+# LHS samples of (b)'s profiled pass (the timed pass runs the defaults)
+PIPE_PROFILE_SAMPLES = 4
 
 
 def check(ok, msg):
@@ -405,15 +459,15 @@ def clocks():
         text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def earlier(kernel, B, n, m, iters, ms):
-    """Print the PERF.md row of a kernel launch's shape beside this run's
-    time, where PERF.md has one. Only printed: the record holds what this
-    run measured."""
-    row = EARLIER_MS.get((kernel, B, n, m, iters))
+def earlier(kernel, B, n, m, iters, ms, elem=4):
+    """Print the PERF.md row of a kernel launch's shape and element size
+    beside this run's time, where PERF.md has one. Only printed: the record
+    holds what this run measured."""
+    row = EARLIER_MS.get((kernel, B, n, m, iters, elem))
     if row is not None:
-        print(f"[{kernel}] B={B} n={n} m={m} {iters} iters: {ms:.4f} ms, "
-              f"earlier {row[1]} ms (PERF.md row {row[0]}; "
-              f"{row[1] / ms:.2f}x)")
+        print(f"[{kernel}] B={B} n={n} m={m} {iters} iters, {8 * elem}-bit: "
+              f"{ms:.4f} ms, earlier {row[1]} ms (PERF.md row {row[0]}, "
+              f"{row[1] / ms:.4f}x)")
 
 
 def bound(bytes_moved, flops):
@@ -631,6 +685,7 @@ def phase_admm(wrapper, mpc64, mpc, x_qp, zt, card, sizes, tol_f32, reps,
         out["ms_f64"] = cuda_ms(lambda: wrapper(*a64, ITERS), reps)
         print(f"[{name}] f64 B={B} n={n} m={mc} {ITERS} iters: kernel "
               f"{out['ms_f64']:.4f} ms [{card}]")
+        earlier(name, B, n, mc, ITERS, out["ms_f64"], elem=8)
         del a64
     if other_size is not None:
         n2, m2 = other_size
@@ -679,6 +734,57 @@ def stream_plans():
         print(f"[admm_stream] n={n} m={m} {8 * elem}-bit: {active} clusters "
               f"in flight; plan {plan}")
         out[f"n={n} m={m} elem={elem}"] = dict(plan=plan, max_active=active)
+    return out
+
+
+def stream_end(elem, built):
+    """The largest n of a square QP that has a streaming plan, by bisection
+    over `built(n, n, elem)` (None where none fits)."""
+    lo, hi = 386, 20000
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if built(mid, mid, elem) is not None else (
+            lo, mid - 1)
+    return lo
+
+
+def stream_range(card, dev):
+    """The streaming kernel's range: the ends of its plan for square QPs
+    in f32 and f64 as the built source exports them, against the Python
+    plan; the f64 QP at n = m = STREAM_OLD_END (the earlier one-block
+    design's end, which the full-slot plan refused) held to its plain
+    version within ADMM_F64_TOL of the solution's scale."""
+    out = {}
+    for elem in (4, 8):
+        end = stream_end(elem, stream_plan_built)
+        want = stream_end(elem, lambda n, m, e: cluster_plan(
+            n, m, e, stream=True))
+        check(end == want, f"admm_stream: the built plan ends at {end} in "
+              f"{8 * elem}-bit, the Python plan at {want}")
+        plan = stream_plan_built(end, end, elem)
+        print(f"[admm_stream] square QPs up to n = m = {end} in {8 * elem}-"
+              f"bit (full slots: {1842 if elem == 8 else 3684}); plan there "
+              f"{plan}")
+        out[f"end_{8 * elem}bit"] = end
+    n = STREAM_OLD_END
+    args = random_qps(1, n, n, 23, torch.float64, dev)
+    count = admm_stream.launches
+    got = admm_stream(*args, ITERS)
+    check(admm_stream.launches == count + 1,
+          "admm_stream did not launch at the old end")
+    ref = admm_batched_plain(*args, ITERS)
+    torch.cuda.synchronize()
+    scale = max(max(float(r.abs().max()) for r in ref), 1.0)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    ms = cuda_ms(lambda: admm_stream(*args, ITERS), 3)
+    plan = stream_plan_built(n, n, 8)
+    print(f"[admm_stream] f64 B=1 n=m={n} {ITERS} iters (x~ in windows: "
+          f"{plan['x_window']}): max abs difference from the plain version "
+          f"{err:.3e} of scale {scale:.3e} (limit {ADMM_F64_TOL} of the "
+          f"scale); kernel {ms:.4f} ms [{card}]")
+    check(err <= ADMM_F64_TOL * scale, f"admm_stream at n = m = {n}: {err}")
+    out[f"f64 n=m={n}"] = dict(max_abs_err=err, scale=scale, ms=ms,
+                               plan=plan)
     return out
 
 
@@ -1089,6 +1195,8 @@ def phase_gusto_fused(tag, formulation, model64, model, card, tol_f32):
             print(f"[{tag}] {kernel.__name__} f64 B={GUSTO_B} "
                   f"n={ka[2].shape[1]} m={ka[3].shape[1]} {iters} iters: "
                   f"kernel {out[key]['ms']:.4f} ms [{card}]")
+            earlier(kernel.__name__, GUSTO_B, ka[2].shape[1],
+                    ka[3].shape[1], iters, out[key]["ms"], elem=8)
         if g.dtype == torch.float32:
             # both f32 results against the plain version in f64 on the
             # same (f32) inputs: the kernel's rounding beside the plain's
@@ -2470,6 +2578,338 @@ def counting_ilqr(make):
 
     return wrapped
 
+# ---------------------------------------------------------------------------
+# Phase 22: the Diamond pipeline (robots, sequences, POD, TPWL build, the
+# rollout check, run_scp)
+
+
+@contextlib.contextmanager
+def launches_per_call(cls, name):
+    """Within the block, the launches of kernel 2 that each call of
+    cls.name makes (a list, one count a call)."""
+    real = getattr(cls, name)
+    seen = []
+
+    def counted(self, *a, **k):
+        before = tpwl_select.launches
+        out = real(self, *a, **k)
+        seen.append(tpwl_select.launches - before)
+        return out
+
+    setattr(cls, name, counted)
+    try:
+        yield seen
+    finally:
+        setattr(cls, name, real)
+
+
+def stage_runner(stages):
+    """stage(name, fn): fn() with its wall time (device synchronized on
+    both sides) recorded in stages[name]."""
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+    return stage
+
+
+def dictionary_steps(robot, model, nbr_samples, seed):
+    """The sweep steps of a dictionary's points: the sweep of
+    collect_tpwl_data (its excitation, seed and t_step 0.3) projected with
+    the model's basis, and the step each point equals (to 1e-12 of the
+    states' scale)."""
+    u, _ = recipes._lhs_excitation(robot, nbr_samples, 0.3, seed, 1.0)
+    xr = to_numpy(model.rom.project_x(recipes._sweep(robot, u)[:-1]))
+    pts = np.concatenate((to_numpy(model.v), to_numpy(model.q)), axis=1)
+    dist = np.abs(pts[:, None, :] - xr[None, :, :]).max(-1)
+    check(bool(np.all(dist.min(1) <= 1e-12 * max(1.0, np.abs(xr).max()))),
+          "pipeline: a dictionary point is no state of its sweep")
+    return dist.argmin(1)
+
+
+def diamond_pipeline(device):
+    """examples/diamond_pipeline.py on `device` in f64: DiamondRobot(
+    n_nodes=10), dt 0.02; POD data (15 samples, seed 1), the basis (1e-8,
+    'v'), the dictionary (threshold 0.4, 15 samples), the rollout check,
+    run_scp (Qz = 200, 5 s after a 0.5 s delay) and the summary. Returns
+    the stages' results, wall times and kernel-2 launches."""
+    robot = DiamondRobot(n_nodes=10, device=device)
+    robot.dt = 0.02
+    robot.sequences.dt = 0.02
+    d = os.path.join(PIPE_DIR, f"diamond10_{torch.device(device).type}")
+    stages = {}
+    stage = stage_runner(stages)
+    out = dict(robot=robot, stages=stages)
+    out["snap"] = stage("pod_data", lambda: recipes.collect_pod_data(
+        robot, d, nbr_samples=15, seed=1))
+    out["pod"] = stage("pod_basis", lambda: recipes.compute_pod_basis(
+        d, pod_tolerance=1e-8, pod_type="v"))
+    out["model"] = stage("tpwl_data", lambda: recipes.collect_tpwl_data(
+        robot, d, threshold=0.4, nbr_samples=15))
+    reset_counts()
+    out["check"] = stage("rollout_check",
+                         lambda: recipes.tpwl_rollout_check(robot, d))
+    out["rollout_launches"] = read_counts()
+    Hf = robot.get_output_model()
+    z0 = float((to_numpy(robot.plant.x_rest()) @ Hf.T)[0])
+    t_t, z_t = sine_setpoint(T=4.0, duration=12.0, dt=0.02, amplitude=0.05)
+    z_t = z_t + z0
+    reset_counts()
+    with launches_per_call(GuSTOService, "_solve") as per_query:
+        out["sim"] = stage("run_scp", lambda: recipes.run_scp(
+            robot, d, t_t, z_t, Qz=np.array([[200.0]]), sim_duration=5.0,
+            delay=0.5))
+    out["scp_launches"] = read_counts()
+    out["per_query"] = per_query
+    out["summary"] = summarize(out["sim"], t_t + 0.5, z_t, t_start=1.5)
+    out["steps"] = dictionary_steps(robot, out["model"], 15, 222)
+    return out
+
+
+def pipe_rel(got, ref):
+    """rel_diff of two arrays or tensors of one shape."""
+    got, ref = to_numpy(got), to_numpy(ref)
+    check(np.shape(got) == np.shape(ref), f"pipeline: shapes "
+          f"{np.shape(got)} {np.shape(ref)}")
+    return rel_diff(got, ref)
+
+
+def phase_pipeline_small(card, dev):
+    """Phase 22(a): the Diamond pipeline at examples/diamond_pipeline.py's
+    settings in f64 on the card, held to the port's f64 CPU run: the same
+    r and selected dictionary steps, the snapshots, the basis (up to each
+    column's sign), the dictionary, the rollout's z within PIPE_F64_TOL of
+    their scale, the closed loop at the golden test's tolerances; kernel 2
+    once a rollout step and the launches of each GuSTO query counted."""
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        runs[name] = diamond_pipeline(device)
+        st = runs[name]["stages"]
+        print(f"[pipeline 10 nodes] {name} f64 stage wall times (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + f" [{card}]")
+    c, r = runs["card"], runs["cpu"]
+    out = {"stages_s": c["stages"], "cpu_stages_s": r["stages"]}
+    n_roll = len(c["check"]["z_rom"]) - 1
+    counts = c["rollout_launches"]
+    print(f"[pipeline 10 nodes] rollout check: {n_roll} steps, launches "
+          f"{counts}")
+    check(counts["tpwl_select"] == n_roll and all(
+        counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+        f"pipeline: rollout launches {counts}, expected {n_roll} of "
+        "tpwl_select")
+    q = np.asarray(c["per_query"])
+    sim = c["sim"]
+    n_solves = len(sim["info"]["solve_times"])
+    print(f"[pipeline 10 nodes] run_scp: {len(sim['t'])} ticks, {len(q)} "
+          f"GuSTO queries ({n_solves} solves logged), kernel 2 launches a "
+          f"query: min {q.min()}, median {np.median(q):.0f}, max {q.max()}; "
+          f"the loop's launches {c['scp_launches']}")
+    check(len(q) > 0 and q.min() > 0, "pipeline: a GuSTO query launched no "
+          "tpwl_select")
+    check(all(c["scp_launches"][k] == 0 for k in KERNELS
+              if k != "tpwl_select"), "pipeline: run_scp launched an ADMM "
+          "kernel")
+    out.update(rollout_launches=counts, scp_launches=c["scp_launches"],
+               launches_per_query=q.tolist(), queries=len(q))
+    # the card's run against the CPU's
+    Uc, Ur = c["pod"]["POD_info"]["U"], r["pod"]["POD_info"]["U"]
+    check(Uc.shape == Ur.shape, f"pipeline: r {Uc.shape[1]} on the card, "
+          f"{Ur.shape[1]} on the CPU")
+    sgn = np.sign(np.sum(Uc * Ur, axis=0))
+    s2 = np.concatenate((sgn, sgn))
+    check(np.array_equal(c["steps"], r["steps"]),
+          f"pipeline: selected steps {c['steps']} on the card, "
+          f"{r['steps']} on the CPU")
+    mc, mr = c["model"], r["model"]
+    diffs = {
+        "snapshots": max(pipe_rel(np.asarray(c["snap"][k]),
+                                  np.asarray(r["snap"][k]))
+                         for k in ("q", "v", "q+", "v+")),
+        "basis": pipe_rel(Uc * sgn, Ur),
+        "A_c": pipe_rel(s2[:, None] * to_numpy(mc.A_c) * s2[None, :],
+                        mr.A_c),
+        "B_c": pipe_rel(s2[:, None] * to_numpy(mc.B_c), mr.B_c),
+        "d_c": pipe_rel(s2 * to_numpy(mc.d_c), mr.d_c),
+        "rollout_z": pipe_rel(c["check"]["z_rom"], r["check"]["z_rom"]),
+    }
+    for k, v in diffs.items():
+        print(f"[pipeline 10 nodes] {k}: card vs f64 CPU {v:.3e} of the "
+              f"scale (limit {PIPE_F64_TOL})")
+        check(v <= PIPE_F64_TOL, f"pipeline: {k} differs by {v}")
+    for k, (rtol, atol) in (("z", GOLDEN_Z_TOL), ("u", GOLDEN_U_TOL)):
+        got, want = c["sim"][k], r["sim"][k]
+        check(got.shape == want.shape, f"pipeline: closed loop {k} shapes")
+        worst = float((np.abs(got - want) / (atol + rtol * np.abs(want)))
+                      .max())
+        print(f"[pipeline 10 nodes] closed loop {k}: card vs f64 CPU, "
+              f"worst {worst:.3e} of the limit (rtol {rtol}, atol {atol})")
+        check(worst <= 1.0, f"pipeline: closed loop {k} off the CPU run")
+        diffs[f"loop_{k}_worst_over_limit"] = worst
+    stats = c["summary"]
+    print(f"[pipeline 10 nodes] r = {Uc.shape[1]}, {mc.num_points} "
+          f"dictionary points at steps {c['steps'].tolist()}; rollout MSE "
+          f"{c['check']['mse']:.6e} (rel_err {c['check']['rel_err']:.6e}); "
+          f"tracking MSE {stats['tracking']['mse']:.6e}; solve times (s) "
+          f"{stats['solve_times']} [{card}]")
+    nums = [c["check"]["mse"], c["check"]["rel_err"],
+            stats["tracking"]["mse"]] + list(c["stages"].values())
+    check(bool(np.isfinite(nums).all()), "pipeline: a non-finite number")
+    out.update(diffs=diffs, r=int(Uc.shape[1]), points=mc.num_points,
+               steps=c["steps"].tolist(), rollout_mse=c["check"]["mse"],
+               rollout_rel_err=c["check"]["rel_err"],
+               tracking_mse=stats["tracking"]["mse"],
+               solve_times=stats["solve_times"],
+               launches={k: v for k, v in c["scp_launches"].items()})
+    out["launches"] = {k: counts[k] + c["scp_launches"][k] for k in counts}
+    return out
+
+
+def phase_pipeline_wide(card, dev):
+    """Phase 22(b): the offline pipeline at the Diamond mesh's width in f64
+    on the card: DiamondRobot(n_nodes=1628), its dt 0.01, the recipes'
+    defaults (40 LHS samples, t_step 0.3), the basis at r = 30, the
+    dictionary at collect_tpwl_data's defaults, the rollout check at 10
+    samples. Each stage's wall time and device-busy share, the plant
+    step's time, the dictionary's size, the peak device memory, the
+    rollout's rel_err; the first PIPE_WIDE_STEPS steps after the
+    excitation starts against the port's f64 CPU run, the basis'
+    orthonormality, at least 2 points, every number finite. Kernel 2's
+    launches over the pipeline are counted; its first launch (the rollout,
+    B=1) is held to its plain version and timed."""
+    robot = DiamondRobot(n_nodes=PIPE_WIDE_NODES, device=dev)
+    d = os.path.join(PIPE_DIR, f"diamond{PIPE_WIDE_NODES}")
+    stages = {}
+    stage = stage_runner(stages)
+    fns = {
+        "pod_data": lambda: recipes.collect_pod_data(robot, d),
+        "pod_basis": lambda: recipes.compute_pod_basis(
+            d, rom_dim=PIPE_WIDE_R),
+        "tpwl_data": lambda: recipes.collect_tpwl_data(robot, d),
+        "rollout_check": lambda: recipes.tpwl_rollout_check(
+            robot, d, nbr_samples=10),
+    }
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with recording(select_ops, "_launch", n=1, clone=1) as sel:
+        res = {k: stage(k, f) for k, f in fns.items()}
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    snap, pod, model, chk = (res[k] for k in fns)
+    T = len(snap["u"])
+    n_roll = len(chk["z_rom"]) - 1
+    print(f"[pipeline {PIPE_WIDE_NODES} nodes] f64, state "
+          f"{2 * PIPE_WIDE_NODES}, dt {robot.dt}: stage wall times (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; {T} sweep steps, {model.num_points} dictionary points, "
+          f"rollout rel_err {chk['rel_err']:.6e} (MSE {chk['mse']:.6e}); "
+          f"peak device memory {peak_gb:.3f} GB; launches {counts} "
+          f"[{card}]")
+    check(counts["tpwl_select"] == n_roll and all(
+        counts[k] == 0 for k in KERNELS if k != "tpwl_select"),
+        f"pipeline wide: launches {counts}, expected {n_roll} of "
+        "tpwl_select")
+    out = dict(stages_s=dict(stages), sweep_steps=T,
+               points=model.num_points, rollout_rel_err=chk["rel_err"],
+               rollout_mse=chk["mse"], peak_device_gb=peak_gb,
+               launches=counts)
+    # where each stage's time goes: each run once more under the profiler,
+    # cut to PIPE_PROFILE_SAMPLES LHS samples (the same steps, fewer of
+    # them: the profiler's record of the whole stage, some 600,000 device
+    # operations, takes minutes to gather), into a directory of its own
+    dp = d + "_profiled"
+    few = dict(nbr_samples=PIPE_PROFILE_SAMPLES)
+    cut = {
+        "pod_data": lambda: recipes.collect_pod_data(robot, dp, **few),
+        "pod_basis": lambda: recipes.compute_pod_basis(
+            dp, rom_dim=PIPE_WIDE_R),
+        "tpwl_data": lambda: recipes.collect_tpwl_data(robot, dp, **few),
+        "rollout_check": lambda: recipes.tpwl_rollout_check(robot, dp,
+                                                            **few),
+    }
+    cut_s = {}
+    stage_cut = stage_runner(cut_s)
+    for k, f in cut.items():
+        stage_cut(k, f)
+    out["profile"] = {k: profile_device(
+        f"pipeline {PIPE_WIDE_NODES} {k} ({PIPE_PROFILE_SAMPLES} samples)",
+        f, 1e3 * cut_s[k]) for k, f in cut.items()}
+    out["profile_stages_s"] = cut_s
+    # the plant's step alone, on the card, at a state of the sweep
+    u = np.asarray(snap["u"])
+    k0 = int(np.argmax(np.abs(u).sum(1) > 0))
+    X = np.concatenate((np.asarray(snap["v"]), np.asarray(snap["q"])), 1)
+    x_k = torch.as_tensor(X[k0 + 10], device=dev)
+    u_k = torch.as_tensor(u[k0 + 10], device=dev)
+    out["plant_step_ms"] = cuda_ms(lambda: robot.plant.step(
+        x_k, u_k, robot.dt), 10)
+    out["plant_step_host_ms"] = 1e3 * stages["pod_data"] / T
+    print(f"[pipeline {PIPE_WIDE_NODES} nodes] plant step "
+          f"{out['plant_step_ms']:.4f} ms on the card (device time); "
+          f"{out['plant_step_host_ms']:.4f} ms a step of the POD sweep "
+          f"(host clock) [{card}]")
+    # the first steps after the excitation starts, against the CPU
+    cpu = DiamondRobot(n_nodes=PIPE_WIDE_NODES, device="cpu")
+    t0 = time.perf_counter()
+    Xc = to_numpy(simulate(cpu.plant, X[k0], u[k0:k0 + PIPE_WIDE_STEPS],
+                           robot.dt))
+    Xnext = np.concatenate((np.asarray(snap["v+"]), np.asarray(snap["q+"])),
+                           1)[k0:k0 + PIPE_WIDE_STEPS]
+    d_steps = pipe_rel(Xnext, Xc[1:])
+    moved = float(np.abs(Xc[-1] - Xc[0]).max())
+    print(f"[pipeline {PIPE_WIDE_NODES} nodes] steps {k0 + 1}-"
+          f"{k0 + PIPE_WIDE_STEPS} (the first {PIPE_WIDE_STEPS} under "
+          f"excitation) against the f64 CPU run: {d_steps:.3e} of the scale "
+          f"(limit {PIPE_WIDE_TOL}; the state moved {moved:.3e}); CPU "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(d_steps <= PIPE_WIDE_TOL, f"pipeline wide: steps off the CPU run "
+          f"by {d_steps}")
+    U = pod["POD_info"]["U"]
+    ortho = float(np.abs(U.T @ U - np.eye(U.shape[1])).max())
+    print(f"[pipeline {PIPE_WIDE_NODES} nodes] basis {U.shape}: "
+          f"|U^T U - I| {ortho:.3e} (limit {PIPE_ORTHO_TOL})")
+    check(U.shape[1] == PIPE_WIDE_R and ortho <= PIPE_ORTHO_TOL,
+          f"pipeline wide: basis {U.shape}, orthonormal to {ortho}")
+    check(model.num_points >= 2, "pipeline wide: fewer than 2 points")
+    nums = ([chk["rel_err"], chk["mse"], peak_gb, out["plant_step_ms"],
+             d_steps, ortho] + list(stages.values())
+            + [p["device_busy_share"] for p in out["profile"].values()])
+    check(bool(np.isfinite(nums).all()) and bool(np.isfinite(X).all()),
+          "pipeline wide: a non-finite number or state")
+    out.update(first_steps_rel_diff=d_steps, basis_orthonormality=ortho,
+               excitation_start=k0)
+    # kernel 2's first launch on the path: the rollout's, B=1
+    check(len(sel) == 1 and sel[0][0].shape[0] == 1,
+          "pipeline wide: no launch of tpwl_select at B=1 recorded")
+    a = sel[0]
+    out["select"] = hold_select(f"pipeline {PIPE_WIDE_NODES} rollout", a[:8],
+                                a[8])
+    out["select_row"] = select_row(f"pipeline {PIPE_WIDE_NODES} rollout",
+                                   (a[0],) + tuple(a[1:8]), 0, card)
+    out["select_row"]["launches"] = counts["tpwl_select"]
+    return out
+
+
+
+class PhaseClock:
+    """Wall seconds of each group of phases, printed as each ends, so that
+    a run's time against its limit can be read by phase."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.tag, self.t0 = None, time.perf_counter()
+
+    def start(self, tag):
+        now = time.perf_counter()
+        if self.tag is not None:
+            self.seconds[self.tag] = now - self.t0
+            print(f"[time] phases {self.tag}: {now - self.t0:.1f} s")
+        self.tag, self.t0 = tag, now
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2486,6 +2926,7 @@ def main():
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     dev = torch.device("cuda")
+    phase_clock = PhaseClock()
 
     # 2. build
     rec["build_s"] = build.build_kernels(KERNELS)
@@ -2522,6 +2963,7 @@ def main():
                             device=dev)
     x_near = X_pts[pts] + 0.05 * X_pts.std(dim=0) * noise
 
+    phase_clock.start("3-6")
     # 3.-6. every kernel against its plain version
     rec["admm_batched"] = phase_admm(
         admm_batched, make_mpc(model64, torch.float64, dev), mpc, x_near, zt,
@@ -2531,6 +2973,7 @@ def main():
         admm_stream, make_mpc(model64, torch.float64, dev, "A"), mpc_a,
         x_near, zt, card, (64, 1, 3), SPARSE_F32_TOL, 5, time_f64=True)
     rec["admm_stream"]["plans"] = stream_plans()
+    rec["admm_stream"]["range"] = stream_range(card, dev)
     rec["admm_cluster"] = phase_admm(
         admm_cluster, make_mpc(model64, torch.float64, dev, "A",
                                horizon=N_F64_CLUSTER), mpc_a,
@@ -2540,6 +2983,7 @@ def main():
         make_mpc(model64, torch.float64, dev, "B"), mpc_b, x_near, zt, card)
     torch.cuda.empty_cache()
 
+    phase_clock.start("7-9")
     # 7.-9. the paths
     none = {"tpwl_select": 1 + N_REPLAN, "admm_batched": 0,
             "admm_cluster": 0, "admm_stream": 0, "admm_single": 0}
@@ -2552,6 +2996,7 @@ def main():
     rec["path_b"] = phase_single_loop(mpc_b, model64, zt_b, card)
     torch.cuda.empty_cache()
 
+    phase_clock.start("10-13")
     # 10.-13. GuSTO (fused, both formulations; the real-time query) and the
     # LTI service
     rec["gusto_condensed"] = phase_gusto_fused(
@@ -2562,6 +3007,7 @@ def main():
     rec["lti"] = phase_lti(Cf, Hf, card, dev)
     torch.cuda.empty_cache()
 
+    phase_clock.start("14")
     # 14. BatchSSMMPC fused (bench.py section 5), trunk timed at B=1024,
     # the Diamond checked at B=64
     for form in ("condensed", "sparse"):
@@ -2571,6 +3017,7 @@ def main():
             f"ssm diamond {form}", "diamond", form, SSM_B_DIAMOND, card, dev,
             False)
 
+    phase_clock.start("15-18")
     # 15.-18. the stage LOCP (bench.py section 4b), GuSTO's stage backend
     # at N=200, ROMPC and Koopman MPC
     rec["stage_locp"] = phase_stage_locp(model64, card, dev)
@@ -2579,6 +3026,7 @@ def main():
     rec["koopman"] = phase_koopman(model64, card, dev)
     torch.cuda.empty_cache()
 
+    phase_clock.start("19-21")
     # 19.-21. the host orchestration layer: the golden chain loop, the
     # campaign's closed loop, the other policies
     rec["golden_chain"] = phase_golden(card, dev)
@@ -2590,6 +3038,15 @@ def main():
     rec["policies"] = phase_policies(model64, model_cpu, Cf, Hf, card, dev)
     torch.cuda.empty_cache()
 
+    phase_clock.start("22")
+    # 22. the Diamond pipeline: examples/diamond_pipeline.py's settings
+    # against the CPU, then the offline half at the mesh's width
+    rec["pipeline_small"] = phase_pipeline_small(card, dev)
+    rec["pipeline"] = phase_pipeline_wide(card, dev)
+    torch.cuda.empty_cache()
+
+    phase_clock.start(None)
+    rec["phase_s"] = phase_clock.seconds
     k2 = rec["tpwl_select"]["plan"]
     paths = {"condensed": rec["condensed"]["launches"],
              "path_a": rec["path_a"]["launches"],
@@ -2619,7 +3076,9 @@ def main():
              "campaign_loop": rec["campaign_loop"]["launches"],
              "campaign_loop_f64": rec["campaign_loop"]["f64"]["launches"],
              **{f"policy_{k}": v["launches"]
-                for k, v in rec["policies"].items()}}
+                for k, v in rec["policies"].items()},
+             "pipeline_small": rec["pipeline_small"]["launches"],
+             "pipeline": rec["pipeline"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -2688,12 +3147,16 @@ def main():
         "tpwl_select", "pallas_tpwl.py:24", "gusto_stage_diamond",
         max(v["max_abs_err"] for v in sel.values()),
         rec["gusto_stage"]["select_row"]))
-    # kernel 2 at a tick of the campaign's closed loop (phase 20)
+    # kernel 2 at a tick of the campaign's closed loop (phase 20) and at a
+    # step of the wide pipeline's rollout check (phase 22)
     r = rec["campaign_loop"]["f32"]
     kernels.append(entry(
         "tpwl_select", "pallas_tpwl.py:24", "campaign_loop",
         max(v["max_abs_err"] for v in r["select controller"].values()),
         r["select_row"]))
+    r = rec["pipeline"]
+    kernels.append(entry("tpwl_select", "pallas_tpwl.py:24", "pipeline",
+                         r["select"]["max_abs_err"], r["select_row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -2705,7 +3168,8 @@ def main():
                           rec["rompc"]["kernel_row"],
                           rec["koopman"]["kernel_row"],
                           rec["gusto_stage"]["select_row"],
-                          rec["campaign_loop"]["f32"]["select_row"]]
+                          rec["campaign_loop"]["f32"]["select_row"],
+                          rec["pipeline"]["select_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

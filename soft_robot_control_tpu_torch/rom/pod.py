@@ -5,8 +5,9 @@ never materialized), matrix projection U^T M U, output-matrix projection
 H = Hf V; `compute_POD` (the SVD and the energy rule) and `load_POD`.
 
 Every map takes any leading batch axes and computes in the promoted dtype
-of its input and of U. The offline pipeline (snapshots, preprocessing,
-`run_POD`) is not ported yet, so this subpackage re-exports nothing.
+of its input and of U. The offline pipeline (`get_snapshots`,
+`process_snapshots`, `run_POD`) is numpy on the host, as in the JAX
+package: the SVD of a few thousand snapshots is no work for the card.
 """
 
 from __future__ import annotations
@@ -118,6 +119,42 @@ class POD:
         return torch.cat((Hf[:, :n] @ U, Hf[:, n:] @ U), dim=1)
 
 
+class pod_config:
+    """POD options with the reference defaults (mor/pod.py:81-90)."""
+
+    def __init__(self):
+        self.pod_type = "v"  # 'q', 'v' or 'a'
+        self.pod_tolerance = 1e-4
+        self.preprocess = []
+        self.preprocess_args = {"nbr_clusters": 0}
+
+
+def get_snapshots(data: dict, pod_type: str) -> np.ndarray:
+    """The snapshot matrix (n_snap, n_f) of a snapshot dict
+    (mor/pod.py:144-154): q - q_0, v, or v+ - v."""
+    if pod_type == "q":
+        return np.asarray(data["q"]) - np.asarray(data["q"][0])
+    if pod_type == "v":
+        return np.asarray(data["v"])
+    if pod_type == "a":
+        return np.asarray(data["v+"]) - np.asarray(data["v"])
+    raise ValueError(f"unknown pod_type {pod_type!r}")
+
+
+def process_snapshots(snapshots: np.ndarray, preprocess, args) -> np.ndarray:
+    """Optional preprocessing of the snapshots (n_snap, n_f): 'normalize'
+    (per column to [0, 1]), 'substract_mean', 'clustering' (k-means
+    centroids, args['nbr_clusters'] > 0)."""
+    if "normalize" in preprocess:
+        lo, hi = snapshots.min(axis=0), snapshots.max(axis=0)
+        snapshots = (snapshots - lo) / (hi + 1e-15 - lo)
+    if "substract_mean" in preprocess:
+        snapshots = snapshots - snapshots.mean(axis=0, keepdims=True)
+    if "clustering" in preprocess and args.get("nbr_clusters", 0) > 0:
+        snapshots = compute_kmeans_centroids(snapshots, args["nbr_clusters"])
+    return snapshots
+
+
 def compute_POD(snapshots: np.ndarray, tol: float,
                 rom_dim: Optional[int] = None):
     """SVD-based POD of snapshots (n_f, n_snap), in numpy on the host.
@@ -138,6 +175,26 @@ def compute_POD(snapshots: np.ndarray, tol: float,
     return U_full, U_full[:, :r], r, S
 
 
+def run_POD(snapshots_file: str, POD_file: str, config: pod_config,
+            rom_dim: Optional[int] = None) -> dict:
+    """The offline POD pipeline: load the snapshots pickle, SVD, save the
+    POD pickle in the reference layout ({'POD_info', 'config', 'Sigma'},
+    mor/pod.py:137-141), and return it."""
+    from soft_robot_control_tpu_torch.utils.io import load_data, save_data
+
+    data = load_data(snapshots_file)
+    snapshots = get_snapshots(data, config.pod_type)
+    snapshots = process_snapshots(snapshots, config.preprocess,
+                                  config.preprocess_args)
+    _, U, r, S = compute_POD(snapshots.T, config.pod_tolerance,
+                             rom_dim=rom_dim)
+    POD_info = {"U": U, "q_ref": np.asarray(data["q"][0]),
+                "v_ref": np.zeros(np.shape(data["v"][0]))}
+    results = {"POD_info": POD_info, "config": vars(config), "Sigma": S}
+    save_data(POD_file, results)
+    return results
+
+
 def load_POD(POD_file: str, device="cuda") -> POD:
     """Load a POD basis from a reference-format pickle (mor/pod.py:93-107)
     onto `device`."""
@@ -146,3 +203,12 @@ def load_POD(POD_file: str, device="cuda") -> POD:
     if not os.path.isfile(POD_file):
         raise RuntimeError("POD file specified is not a valid file")
     return POD(load_data(POD_file)["POD_info"], device=device)
+
+
+def compute_kmeans_centroids(snapshot: np.ndarray, k: int) -> np.ndarray:
+    """k-means centroids for POD preprocessing (mor/pod.py:207-216); needs
+    scikit-learn, imported here as in the JAX package."""
+    from sklearn.cluster import KMeans
+
+    km = KMeans(k, n_init=100, max_iter=1000, random_state=0).fit(snapshot)
+    return km.cluster_centers_

@@ -45,13 +45,12 @@ from soft_robot_control_tpu_torch.sim.closed_loop import run_closed_loop
 pytestmark = pytest.mark.cuda
 
 
-def _qps(B, n, m, seed, inf_rows=0, rank=None, device="cpu"):
-    """Random feasible QPs with K^-1 from the port's make_kinv (f64, on
-    `device`); P = Ph Ph^T + 0.1 I with Ph of `rank` columns (n by
-    default); the first `inf_rows` rows have no lower bound, the next as
-    many no upper."""
+def _qps(B, n, m, seed, inf_rows=0, device="cpu"):
+    """Random feasible QPs with K^-1 from the port's make_kinv (f64, P and
+    K^-1 built on `device`); the first `inf_rows` rows have no lower
+    bound, the next as many no upper."""
     rng = np.random.default_rng(seed)
-    Ph = rng.normal(size=(B, n, rank or n))
+    Ph = rng.normal(size=(B, n, n))
     P = torch.as_tensor(Ph, device=device)
     P = P @ P.transpose(1, 2) + 0.1 * torch.eye(n, dtype=P.dtype,
                                                 device=device)
@@ -218,19 +217,18 @@ def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device, n, dtype):
     row is walked in place) and the earlier one-block design's f64 end
     (2,641, which the full-slot plan refused) run. In f64 within 1e-9 of
     the solution's scale of the plain version. In f32 each of the 6,624
-    terms of a sum rounds, and the two sum in other orders (the plain
-    version measured 9e-4 of the scale from the kernel on an H100): the
-    kernel's error against the plain version in f64 on the same inputs is
-    held within twice the plain f32 version's (SSM_F32_ROUNDING_RATIO's
-    rule in chip_smoke.py). One more variable and row past the end, and
-    the launch raises."""
+    terms of a sum rounds, and the kernel and the plain version sum in
+    other orders: the kernel's error against the plain version in f64 on
+    the same inputs is held within twice the plain f32 version's
+    (SSM_F32_ROUNDING_RATIO's rule in chip_smoke.py). One more variable
+    and row past the end, and the launch raises."""
     elem = torch.empty((), dtype=dtype).element_size()
     plan = stream_plan_built(n, n, elem)
     assert plan == {k: cluster_plan(n, n, elem, stream=True)[k]
                     for k in PLAN_FIELDS}
     assert plan["x_window"]
     args = [t.to(cuda_device, dtype) for t in _qps(
-        1, n, n, seed=5, inf_rows=200, rank=64, device=cuda_device)]
+        1, n, n, seed=5, inf_rows=200, device=cuda_device)]
     got = admm_stream(*args, 10)
     ref = admm_batched_plain(*args, 10)
     exact = admm_batched_plain(*[t.double() for t in args], 10)
@@ -247,7 +245,7 @@ def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device, n, dtype):
         return
     assert stream_plan_built(n + 1, n + 1, elem) is None
     args = [t.to(cuda_device, dtype) for t in _qps(
-        1, n + 1, n + 1, seed=5, rank=8, device=cuda_device)]
+        1, n + 1, n + 1, seed=5, device=cuda_device)]
     launches = admm_stream.launches
     with pytest.raises(ValueError, match="shared memory"):
         admm_stream(*args, 10)
