@@ -349,12 +349,28 @@ struct Lanes {
   static constexpr int kRows = 32 / kCols;
 };
 
+// acc += a b; with kComp compensated (Kahan): c carries what the sum's
+// rounding lost, so that a lane's long sum in f32 rounds about as often as
+// one addition does.
+template <bool kComp, typename T>
+__device__ __forceinline__ void add_prod(T& acc, T& c, T a, T b) {
+  if constexpr (kComp) {
+    const T y = a * b - c;
+    const T t = acc + y;
+    c = (t - acc) - y;
+    acc = t;
+  } else {
+    acc += a * b;
+  }
+}
+
 // emit(c, g, acc) with acc[k] = sum_r M[r, c + k] v[r], k < V, for every
 // chunk of V columns from c: a warp owns the columns of 128 bytes and all
-// the rows, its kRows lane groups take every kRows-th row and add up by
-// shuffles, and each group g calls emit with the full sum. A chunk may
-// reach past `cols` into the rows' zero padding; emit takes it whole.
-template <typename T, int V, typename M_, typename F>
+// the rows, its kRows lane groups take every kRows-th row (add_prod<kComp>)
+// and add up by shuffles, and each group g calls emit with the full sum. A
+// chunk may reach past `cols` into the rows' zero padding; emit takes it
+// whole.
+template <typename T, int V, bool kComp, typename M_, typename F>
 __device__ __forceinline__ void walk_cols(const M_& M, int rows, int cols,
                                           const T* v, F emit) {
   constexpr int kCols = Lanes<T, V>::kCols, kRows = Lanes<T, V>::kRows;
@@ -364,17 +380,22 @@ __device__ __forceinline__ void walk_cols(const M_& M, int rows, int cols,
   const int lc = lane % kCols, g = lane / kCols;
   for (int base = warp * kCols * V; base < cols; base += nwarp * kCols * V) {
     const int c = base + lc * V;
-    Vec<T, V> acc;
+    Vec<T, V> acc, cmp;
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc.v[k] = 0;
+    for (int k = 0; k < V; ++k) acc.v[k] = cmp.v[k] = 0;
     if (c < cols) {
 #pragma unroll 4
       for (int r = g; r < rows; r += kRows) {
         const Vec<T, V> a = M.template load<V>(r, c);
         const T vr = v[r];
 #pragma unroll
-        for (int k = 0; k < V; ++k) acc.v[k] += a.v[k] * vr;
+        for (int k = 0; k < V; ++k)
+          add_prod<kComp>(acc.v[k], cmp.v[k], a.v[k], vr);
       }
+    }
+    if constexpr (kComp) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc.v[k] -= cmp.v[k];
     }
 #pragma unroll
     for (int off = kCols; off < 32; off <<= 1)
@@ -389,9 +410,10 @@ __device__ __forceinline__ void walk_cols(const M_& M, int rows, int cols,
 // 4w+3 together, lanes along the row V elements at a time, so that one load
 // of v serves four rows; the four sums are reduced together (halving the
 // values a lane carries at each of the first two shuffle steps), and four
-// lanes call emit, one row each. v is read up to the chunk's end, past
-// `cols` where the rows are padded: it must hold zeros there.
-template <typename T, int V, typename M_, typename F>
+// lanes call emit, one row each (a lane's products summed by
+// add_prod<kComp>). v is read up to the chunk's end, past `cols` where the
+// rows are padded: it must hold zeros there.
+template <typename T, int V, bool kComp, typename M_, typename F>
 __device__ __forceinline__ void walk_rows(const M_& M, int rows, int cols,
                                           const T* v, F emit) {
   const int lane = threadIdx.x & 31;
@@ -399,11 +421,11 @@ __device__ __forceinline__ void walk_rows(const M_& M, int rows, int cols,
   const int nwarp = blockDim.x >> 5;
   for (int r = 4 * warp; r < rows; r += 4 * nwarp) {
     int row[4];
-    T acc[4];
+    T acc[4], cmp[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       row[k] = r + k < rows ? r + k : rows - 1;
-      acc[k] = 0;
+      acc[k] = cmp[k] = 0;
     }
 #pragma unroll 2
     for (int c = lane * V; c < cols; c += 32 * V) {
@@ -412,8 +434,13 @@ __device__ __forceinline__ void walk_rows(const M_& M, int rows, int cols,
       for (int k = 0; k < 4; ++k) {
         const Vec<T, V> a = M.template load<V>(row[k], c);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[k] += a.v[e] * x.v[e];
+        for (int e = 0; e < V; ++e)
+          add_prod<kComp>(acc[k], cmp[k], a.v[e], x.v[e]);
       }
+    }
+    if constexpr (kComp) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] -= cmp[k];
     }
     // lanes 0-15 go on with rows 0 and 1, lanes 16-31 with rows 2 and 3
     const bool up = lane & 16;
@@ -450,7 +477,12 @@ __device__ __forceinline__ T slots_sum(const T* slots, int R, int len,
 // cluster calls it with the same arguments, the pointers at the QP's own
 // data. K is K^-1 (kForm = kKinv, symmetric) or M1 (kForm = kM1). kXW is
 // the plan's xwin: x~ partials received in windows and the finished rows
-// gathered (kKinv only).
+// gathered (kKinv only). The QPs that take it are those whose vectors
+// leave no room for full slots, so their rows are long (n = m past 3,684
+// in f32): their f32 walks sum with compensation (kComp). With plain sums
+// the kernel's f32 error grew with n faster than cuBLAS's (up to 2.18x the
+// plain f32 version's at n = m = 6,624 on QPs with P of rank 64, 0.40x to
+// 0.65x compensated; PERF.md).
 template <typename T, int kGV, int kForm, int kRes, bool kXW = false>
 __device__ __forceinline__ void solve(
     const T* __restrict__ K, const T* __restrict__ A,
@@ -465,6 +497,7 @@ __device__ __forceinline__ void solve(
   // the walks' vector width: 16 bytes on kSome's padded rows, else what
   // the rows in device memory allow
   constexpr int V = kRes == kSome ? 16 / kElem : kGV;
+  constexpr bool kComp = kXW && kElem == 4;
   const int R = p.R, nr = p.nr, nw = up16(n, kElem);
   const int sld = row_stride(n, kElem, kRes);
   const int rank = (int)cluster.block_rank();
@@ -546,7 +579,7 @@ __device__ __forceinline__ void solve(
   }
   if constexpr (kRes != kNone && kGV * kElem == 16) __pipeline_wait_prior(0);
   __syncthreads();
-  walk_rows<T, V>(mA, ma, n, sw, [&](int j, T acc) {
+  walk_rows<T, V, kComp>(mA, ma, n, sw, [&](int j, T acc) {
     const T z = admm::clip(acc, sl[j], su[j]);
     sz[j] = z;
     st[j] = sp[j] * z - sy[j];
@@ -564,7 +597,7 @@ __device__ __forceinline__ void solve(
     const uint32_t parity = it & 1;
     // A^T t over the block's rows, sent to where rhs is formed: thread r
     // sends block r its window of the partial
-    walk_cols<T, V>(mA, ma, n, st, gather(pa));
+    walk_cols<T, V, kComp>(mA, ma, n, st, gather(pa));
     fence_for_bulk();
     __syncthreads();
     if (tid < R) {
@@ -581,16 +614,18 @@ __device__ __forceinline__ void solve(
       for (int i = tid; i < n; i += nthr)
         sr[i] = sigma * sw[i] - sq[i] + slots_sum(rs, R, rs_len, i);
       __syncthreads();
-      walk_rows<T, V>(mK, nk, n, sr, [&](int i, T acc) { ss[i] = acc; });
+      walk_rows<T, V, kComp>(mK, nk, n, sr,
+                             [&](int i, T acc) { ss[i] = acc; });
       __syncthreads();
-      walk_cols<T, V>(mK, nk, n, ss, gather(pk));  // M1^T s, own rows
+      walk_cols<T, V, kComp>(mK, nk, n, ss, gather(pk));  // M1^T s, own rows
     } else {
       const T* own = rs + (k_lo - w_lo);  // this block's rows in each slot
       for (int j = tid; j < nk; j += nthr)
         sr[j] = sigma * sw[k_lo + j] - sq[k_lo + j] +
                 slots_sum(own, R, rs_len, j);
       __syncthreads();
-      walk_cols<T, V>(mK, nk, n, sr, gather(pk));  // K^-1[rows, :]^T rhs
+      // K^-1[rows, :]^T rhs
+      walk_cols<T, V, kComp>(mK, nk, n, sr, gather(pk));
     }
     fence_for_bulk();
     __syncthreads();
@@ -625,7 +660,8 @@ __device__ __forceinline__ void solve(
       }
     }
     __syncthreads();
-    walk_rows<T, V>(mA, ma, n, sx, [&](int j, T zt) {  // A x~, own rows
+    // A x~, own rows
+    walk_rows<T, V, kComp>(mA, ma, n, sx, [&](int j, T zt) {
       const T z_rel = alpha * zt + one_m_alpha * sz[j];
       const T z_new = admm::clip(z_rel + sy[j] / sp[j], sl[j], su[j]);
       const T y_new = sy[j] + sp[j] * (z_rel - z_new);

@@ -41,7 +41,10 @@
 // rows to every peer: a third exchange an iteration, and the vectors then
 // take about 8.75 n elements (make_plan's xwin; n = m up to 3,312 in f64
 // and 6,624 in f32). The plan chooses it from the sizes alone, so the
-// paths' QPs keep the two exchanges. In f64 at
+// paths' QPs keep the two exchanges: forced onto them, the windowed
+// receive gave the same results bit for bit and took 13.7% longer on
+// GuSTO's sparse LOCPs in f64 (8.41 against 7.40 ms on an H100). Its f32
+// walks sum with compensation: their rows are long. In f64 at
 // n=386 the rows walked in place for the QPs in flight pass the L2. A QP
 // whose matrices fit the cluster entirely takes the same path with every
 // row resident (a smaller one goes to admm_batched.cu or admm_cluster.cu

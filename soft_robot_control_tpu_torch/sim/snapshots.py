@@ -82,11 +82,13 @@ class SnapshotData:
         return self.dict
 
 
-def in_chunks(fn, X, U, chunk_bytes: int = JACOBIAN_CHUNK_BYTES):
+def in_chunks(fn, X, U):
     """fn(X[s:e], U[s:e]) over the points X (k, 2n), U (k, m) in chunks of
-    as many points as keep a dense (2n)^2 matrix each under `chunk_bytes`;
-    its tensors concatenated as numpy arrays with a leading axis of k."""
-    per = max(1, chunk_bytes // (X.shape[-1] ** 2 * X.element_size()))
+    as many points as keep a dense (2n)^2 matrix each under
+    JACOBIAN_CHUNK_BYTES; its tensors concatenated as numpy arrays with a
+    leading axis of k."""
+    per = max(1, JACOBIAN_CHUNK_BYTES // (X.shape[-1] ** 2
+                                          * X.element_size()))
     parts = [[a.cpu().numpy() for a in fn(X[s:s + per], U[s:s + per])]
              for s in range(0, X.shape[0], per)]
     return tuple(np.concatenate(p) for p in zip(*parts))

@@ -45,12 +45,13 @@ from soft_robot_control_tpu_torch.sim.closed_loop import run_closed_loop
 pytestmark = pytest.mark.cuda
 
 
-def _qps(B, n, m, seed, inf_rows=0, device="cpu"):
+def _qps(B, n, m, seed, inf_rows=0, device="cpu", rank=None):
     """Random feasible QPs with K^-1 from the port's make_kinv (f64, P and
-    K^-1 built on `device`); the first `inf_rows` rows have no lower
-    bound, the next as many no upper."""
+    K^-1 built on `device`); P = Ph Ph^T + 0.1 I with Ph of `rank` columns
+    (n by default); the first `inf_rows` rows have no lower bound, the
+    next as many no upper."""
     rng = np.random.default_rng(seed)
-    Ph = rng.normal(size=(B, n, n))
+    Ph = rng.normal(size=(B, n, rank or n))
     P = torch.as_tensor(Ph, device=device)
     P = P @ P.transpose(1, 2) + 0.1 * torch.eye(n, dtype=P.dtype,
                                                 device=device)
@@ -208,27 +209,31 @@ def test_block_form_takes_unaligned_and_strided_inputs(cuda_device, dtype,
         _assert_close(got, ref, dtype, tol)
 
 
-@pytest.mark.parametrize("n,dtype", [(3312, torch.float64),
-                                     (6624, torch.float32),
-                                     (2641, torch.float64)])
-def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device, n, dtype):
+@pytest.mark.parametrize("n,dtype,rank,seed", [
+    (3312, torch.float64, None, 5), (6624, torch.float32, None, 5),
+    (6624, torch.float32, 64, 5), (6624, torch.float32, 64, 7),
+    (6624, torch.float32, 64, 10), (2641, torch.float64, None, 5)])
+def test_stream_kernel_takes_qps_up_to_its_vectors(cuda_device, n, dtype,
+                                                   rank, seed):
     """The streaming kernel's largest square QPs (n = m = 3,312 in f64 and
     6,624 in f32: x~ received in windows, its vectors fill a block, every
     row is walked in place) and the earlier one-block design's f64 end
     (2,641, which the full-slot plan refused) run. In f64 within 1e-9 of
     the solution's scale of the plain version. In f32 each of the 6,624
-    terms of a sum rounds, and the kernel and the plain version sum in
-    other orders: the kernel's error against the plain version in f64 on
-    the same inputs is held within twice the plain f32 version's
-    (SSM_F32_ROUNDING_RATIO's rule in chip_smoke.py). One more variable
-    and row past the end, and the launch raises."""
+    terms of a sum rounds, and the kernel (compensated sums) and the plain
+    version sum in other orders: the kernel's error against the plain
+    version in f64 on the same inputs is held within twice the plain f32
+    version's (SSM_F32_ROUNDING_RATIO's rule in chip_smoke.py), on a P of
+    full rank and on ill-conditioned ones (rank 64 plus 0.1 I; the seeds
+    where plain sums in the kernel read 1.60x, 2.18x and 2.12x). One more
+    variable and row past the end, and the launch raises."""
     elem = torch.empty((), dtype=dtype).element_size()
     plan = stream_plan_built(n, n, elem)
     assert plan == {k: cluster_plan(n, n, elem, stream=True)[k]
                     for k in PLAN_FIELDS}
     assert plan["x_window"]
     args = [t.to(cuda_device, dtype) for t in _qps(
-        1, n, n, seed=5, inf_rows=200, device=cuda_device)]
+        1, n, n, seed=seed, inf_rows=200, device=cuda_device, rank=rank)]
     got = admm_stream(*args, 10)
     ref = admm_batched_plain(*args, 10)
     exact = admm_batched_plain(*[t.double() for t in args], 10)

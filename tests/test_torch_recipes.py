@@ -8,11 +8,14 @@ JAX package, in f64 on the CPU, from the same numpy seeds:
    each package's run once by a module-scoped fixture: the snapshots, r,
    the POD basis up to the sign of each column, the dictionary point by
    point (the same selected steps), the rollout check; then `run_scp` on
-   the Diamond (:69-83's settings, cut to 0.7 s: 5 replans);
+   the Diamond (:69-83's settings, cut to 0.7 s: 5 replans); and the
+   rollout's error at chip_smoke.py phase 22(b)'s settings on 50 and 200
+   nodes;
 2. the modules under them on small inputs: `rom/pod.py`'s offline half,
-   `sim/snapshots.py`, `models/tpwl_build.py` under both eval_types, the
-   robots, `tasks/calibration.py` (tests/test_aux.py:51-90's settings) and
-   the numpy copies of `tasks/{targets,analysis}.py`.
+   `sim/snapshots.py`, `models/tpwl_build.py` under both eval_types (also
+   with their Jacobians in several chunks), the robots,
+   `tasks/calibration.py` (tests/test_aux.py:51-90's settings) and the
+   numpy copies of `tasks/{targets,analysis}.py`.
 
 Tolerances are stated beside each assertion.
 """
@@ -222,6 +225,31 @@ def test_rollout_check_is_the_jax_packages(offline):
     _close(tc["z_rom"], jc["z_rom"], 1e-10, "z_rom")
     assert tc["mse"] == pytest.approx(jc["mse"], rel=1e-8)
     assert tc["rel_err"] == pytest.approx(jc["rel_err"], rel=1e-8)
+
+
+@pytest.mark.parametrize("width", [50, 200])
+def test_wide_settings_rollout_is_the_jax_packages(tmp_path, width):
+    """The offline pipeline at chip_smoke.py phase 22(b)'s settings (the
+    robot's dt 0.01, the recipes' defaults: 40 LHS samples, the basis at r
+    = 30, the rollout check at 10 samples) on chains of 50 and 200 nodes:
+    the same dictionary size and the rollout's rel_err and MSE within 1e-8
+    of the JAX package's (relative). The rel_err is the method's, not the
+    port's (0.614 and 0.507 here; tools/pipeline_widths.py reads it at
+    other widths)."""
+    out = {}
+    for p, rec in (("j", jrec), ("t", trec)):
+        robot = (jrobots.DiamondRobot(n_nodes=width) if p == "j"
+                 else trobots.DiamondRobot(n_nodes=width, device="cpu"))
+        d = str(tmp_path / p)
+        rec.collect_pod_data(robot, d)
+        rec.compute_pod_basis(d, rom_dim=30)
+        model = rec.collect_tpwl_data(robot, d)
+        out[p] = model.num_points, rec.tpwl_rollout_check(robot, d,
+                                                          nbr_samples=10)
+    (nj, cj), (nt, ct) = out["j"], out["t"]
+    assert nt == nj >= 2
+    assert ct["rel_err"] == pytest.approx(cj["rel_err"], rel=1e-8)
+    assert ct["mse"] == pytest.approx(cj["mse"], rel=1e-8)
 
 
 def test_run_scp_is_the_jax_packages(diamond_runs):
@@ -439,6 +467,54 @@ def test_reduced_affine_dynamics_takes_batches(plants):
         ref = jbuild.reduced_affine_dynamics(jp, jr, X[i], u[i])
         for a, b in zip(got, ref):
             _close(a[k], b, 1e-12)
+
+
+def test_jacobians_in_several_chunks_are_the_jax_packages(plants,
+                                                         monkeypatch):
+    """run_open_loop_collection (15 saved points) and build_tpwl_model's
+    distance criterion with a chunk budget (JACOBIAN_CHUNK_BYTES) of two
+    dense (2n)^2 Jacobians, so that the points go in several chunks and
+    the last one is short, as at the Diamond mesh's width: the points and
+    matrices within the one-chunk tests' tolerances (1e-12 and 1e-10 of
+    their scale) of the JAX package's."""
+    jp, tp = plants
+    monkeypatch.setattr(tsnap, "JACOBIAN_CHUNK_BYTES",
+                        2 * (2 * tp.n_nodes_dof) ** 2 * 8)
+    sizes = []
+    in_chunks = tsnap.in_chunks
+
+    def counted(fn, X, U):
+        def chunk(x, u):
+            sizes.append(x.shape[0])
+            return fn(x, u)
+        return in_chunks(chunk, X, U)
+
+    monkeypatch.setattr(tsnap, "in_chunks", counted)
+    monkeypatch.setattr(tbuild, "in_chunks", counted)
+    T = 30
+    u = np.abs(np.random.default_rng(1).normal(size=(T, 3)))
+    save = np.zeros(T, bool)
+    save[::2] = True
+    got = tsnap.run_open_loop_collection(tp, u, save, 0.02,
+                                         tsnap.SnapshotData(True))
+    ref = jsnap.run_open_loop_collection(jp, u, save, 0.02,
+                                         jsnap.SnapshotData(True))
+    assert sizes == [2] * 7 + [1]
+    for k in ("q", "v", "u", "q+", "v+", "A", "B", "d"):
+        _close(np.asarray(got[k]), np.asarray(ref[k]), 1e-12, k)
+    sizes.clear()
+    X, u, info = _sweep_and_rom(jp, tp)
+    cfg = dict(eval_type="distance", TPWL_threshold=0.3)
+    jm = jbuild.build_tpwl_model(jp, jpod.POD(info), X[:-1], u,
+                                 config=jbuild.tpwl_config(**cfg))
+    tm = tbuild.build_tpwl_model(tp, tpod.POD(info, device="cpu"), X[:-1],
+                                 u, config=tbuild.tpwl_config(**cfg),
+                                 device="cpu")
+    assert tm.num_points == jm.num_points >= 3
+    assert sum(sizes) == tm.num_points and max(sizes) == 2
+    jd, td = jbuild.to_tpwl_dict(jm), tbuild.to_tpwl_dict(tm)
+    for k in ("q", "v", "u", "A_c", "B_c", "d_c"):
+        _close(td[k], jd[k], 1e-10, k)
 
 
 @pytest.mark.parametrize("cls", ["DiamondRobot", "TrunkRobot", "FingerRobot",

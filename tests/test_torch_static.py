@@ -15,13 +15,14 @@ FORBIDDEN = {"jax", "jaxlib", "soft_robot_control_tpu"}
 
 
 def _port_files():
-    """The package, chip_smoke.py, cluster_probe.py, tools/stream_rows.py,
-    and the card tests with their helpers, which run on a machine without
-    JAX."""
+    """The package, chip_smoke.py, cluster_probe.py, the port's tools
+    (tools/stream_variants.py, tools/pipeline_widths.py), and the card
+    tests with their helpers, which run on a machine without JAX."""
     root = os.path.join(REPO, "soft_robot_control_tpu_torch")
     files = [os.path.join(REPO, p) for p in (
-        "chip_smoke.py", "cluster_probe.py", "tools/stream_rows.py",
-        "tests/test_torch_kernels_cuda.py", "tests/torch_helpers.py")]
+        "chip_smoke.py", "cluster_probe.py", "tools/stream_variants.py",
+        "tools/pipeline_widths.py", "tests/test_torch_kernels_cuda.py",
+        "tests/torch_helpers.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -81,7 +82,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/tasks/targets.py",
             "soft_robot_control_tpu_torch/tasks/problem.py",
             "soft_robot_control_tpu_torch/tasks/analysis.py",
-            "tools/stream_rows.py"} <= names
+            "tools/stream_variants.py", "tools/pipeline_widths.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
     assert not {f: r for f, r in bad.items() if r}
