@@ -155,7 +155,29 @@ the tolerances stated below.
    wall time and device-busy share, the plant step, the dictionary's
    size, the peak device memory, the rollout's rel_err; the first 20
    excited plant steps against the f64 CPU run, the basis' orthonormality;
-   kernel 2 held to its plain version on its first launch (B=1) and timed.
+   kernel 2 held to its plain version on its first launch (B=1) and timed;
+23. the tet-FEM plant (sim/fem_tet.py, sim/modal.py) and the Diamond tet
+   campaign: (a) tests/test_fem_tet.py's box (45 nodes) built on the card
+   in f64 and carried to the CPU: 30 steps under seeded inputs with the
+   same PCG iterations, a batched step of 4 lanes (one at rest),
+   solve_st_multi and both projections at one point, a with_young_scale
+   settle, mode_shapes and a short modal_decay_batch, each within
+   TET_SMALL_TOL of its scale, and the build's preconditioner operator
+   against the CPU's own build; (b) DiamondTetRobot on a box mesh of the
+   Diamond's width in its scene (1,584 nodes, a 9,504-dim state; written
+   as a .vtu to a temporary directory), built in f64 and f32 (seconds of
+   the element stiffnesses, K0, the eigh, the settle), the plant step from
+   rest and under 1,500 mN on one cable (host ms, device ms and busy share
+   from a device-only profiled pass, PCG iterations), solve_st_multi at
+   64 columns, the f32 step against the f64 one, the first 5 loaded steps
+   against the f64 plant carried to the CPU; then the campaign's --quick
+   settings in f64 (examples/diamond_tet_campaign.py:82-85, :124-195: POD
+   data, the basis at r = 30, the discrete dictionary at threshold 40,
+   the rollout check, run_scp for 3 s on the figure-8): each stage's wall
+   time and busy share (a cut, profiled pass), r, P, the rollout's MSE and
+   rel_err, the loop's tracking RMSE and plan rejects, kernel 2's launches
+   a rollout step and a query, the peak memory; kernel 2's first rollout
+   launch (B=1, the dictionary's P) held to its plain version and timed.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Each timed kernel row prints the kernel's earlier time on the card
@@ -171,6 +193,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -202,7 +225,8 @@ from soft_robot_control_tpu_torch.models.dubins import DubinsCar  # noqa: E402,E
 from soft_robot_control_tpu_torch.models.interfaces import (  # noqa: E402
     TPWLGuSTO)
 from soft_robot_control_tpu_torch.models.convert import (  # noqa: E402
-    model_from_arrays, surrogate_from_arrays, unflatten_arrays)
+    model_from_arrays, surrogate_from_arrays, tet_fem_arrays,
+    tet_fem_from_arrays, unflatten_arrays)
 from soft_robot_control_tpu_torch.models.koopman import (  # noqa: E402
     koopman_model_from_arrays, train_edmd)
 from soft_robot_control_tpu_torch.models.linear import (  # noqa: E402
@@ -222,6 +246,9 @@ from soft_robot_control_tpu_torch.ops.tpwl_select import (  # noqa: E402
     point_distances_batch, tpwl_select, tpwl_select_plain)
 from soft_robot_control_tpu_torch.qp.blocked import make_kinv  # noqa: E402
 from soft_robot_control_tpu_torch.robots import DiamondRobot  # noqa: E402
+from soft_robot_control_tpu_torch.rom.pod import POD  # noqa: E402
+from soft_robot_control_tpu_torch.robots.robots import (  # noqa: E402
+    DiamondTetRobot)
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit  # noqa: E402
@@ -233,8 +260,13 @@ from soft_robot_control_tpu_torch.scp.standalone import (  # noqa: E402
     run_gusto_standalone)
 from soft_robot_control_tpu_torch.sim.closed_loop import (  # noqa: E402
     run_closed_loop)
+from soft_robot_control_tpu_torch.sim import fem_tet  # noqa: E402
 from soft_robot_control_tpu_torch.sim.fem_surrogate import (  # noqa: E402
     simulate)
+from soft_robot_control_tpu_torch.sim.fem_tet import (  # noqa: E402
+    build_tet_fem, make_box_mesh, with_young_scale, write_vtu_ascii)
+from soft_robot_control_tpu_torch.sim.modal import (  # noqa: E402
+    modal_decay_batch, mode_shapes)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
     linearModel)
 from soft_robot_control_tpu_torch.tasks import recipes  # noqa: E402
@@ -425,6 +457,32 @@ PIPE_WIDE_TOL = 1e-9
 PIPE_ORTHO_TOL = 1e-10
 # LHS samples of (b)'s profiled pass (the timed pass runs the defaults)
 PIPE_PROFILE_SAMPLES = 4
+# The tet-FEM plant (phase 23). (a) tests/test_fem_tet.py:51-61's box in
+# f64 on the card against the CPU (the card's plant carried to the CPU
+# with models/convert.py), each quantity within TET_SMALL_TOL of its
+# scale: the same f64 arithmetic, the card's scatter summing in another
+# order. (b) a box mesh of the Diamond's width in its scene:
+# make_box_mesh(11, 12, 12, spacing=10) shifted by -TET_SHIFT, 1,584 nodes
+# (a 9,504-dim state), written as a .vtu and built by DiamondTetRobot;
+# the first TET_WIDE_STEPS steps under TET_LOAD mN on one cable against
+# the f64 plant carried to the CPU; then examples/diamond_tet_campaign.py's
+# --quick settings (TET_CAMPAIGN) in f64, artifacts under build/tet_campaign
+TET_SMALL_TOL = 1e-9
+TET_SMALL_STEPS = 30
+TET_BOX, TET_SHIFT = (11, 12, 12), (50.0, 35.0, 55.0)
+TET_LOAD = 1500.0
+TET_WIDE_STEPS = 5
+TET_WIDE_TOL = 1e-9
+TET_TIMED_STEPS = 10       # plant steps timed from one state
+TET_LOAD_STEPS = 20        # steps under load before the loaded step
+TET_COLUMNS = 64           # solve_st_multi's 2r + m at r = 30, m = 4
+TET_DIR = os.path.join(HERE, "build", "tet_campaign")
+TET_CAMPAIGN = dict(samples=8, t_step=0.25, pod_tol=5e-5, rom_dim=30,
+                    threshold=40.0, check_samples=6, check_seed=333,
+                    sim_duration=3.0, delay=1.0, N=10, N_replan=2)
+# LHS samples (and run_scp seconds: the 1 s delay, then 3 queries) of the
+# profiled pass of each stage
+TET_PROFILE_SAMPLES, TET_PROFILE_SCP_S = 1, 1.06
 
 
 def check(ok, msg):
@@ -911,14 +969,18 @@ def cpu_agreement(tag, name, got, ref, tol):
     return agree
 
 
-def profile_device(tag, fn, wall_ms):
+def profile_device(tag, fn, wall_ms, host_ops=True):
     """Where the device time of one call of fn() goes, by kernel: printed,
-    and returned with the device's busy share of `wall_ms`."""
+    and returned with the device's busy share of `wall_ms`. host_ops=False
+    records the device's activity alone: the profiler's summary of a run
+    of some 100,000 host operations takes it tens of seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -2895,6 +2957,448 @@ def phase_pipeline_wide(card, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the tet-FEM plant (sim/fem_tet.py) and the Diamond tet campaign
+
+
+def scaled(got, ref):
+    """max |got - ref| over max |ref| (tensors or arrays of one shape)."""
+    got, ref = to_numpy(got), to_numpy(ref)
+    check(np.shape(got) == np.shape(ref), f"tet: shapes {np.shape(got)} "
+          f"{np.shape(ref)}")
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def small_box(device):
+    """tests/test_fem_tet.py:51-61's box plant on `device` in f64."""
+    pts, tets = make_box_mesh(3, 3, 5, spacing=10.0)
+    cables = [{"waypoints": np.array([[10.0, 10.0, 38.0]]),
+               "pull_point": np.array([10.0, 10.0, 0.0])},
+              {"waypoints": np.array([[2.0, 10.0, 15.0], [2.0, 10.0, 25.0],
+                                      [2.0, 10.0, 38.0]])}]
+    return build_tet_fem(pts, tets, young=200.0, poisson=0.45,
+                         total_mass=0.05, alpha=0.5, beta=0.02,
+                         fixed_box=(-1.0, -1.0, -1.0, 21.0, 21.0, 1.0),
+                         cables=cables, dt=0.01, device=device)
+
+
+def on_cpu(plant):
+    """The plant's leaves carried to a plant on the CPU."""
+    return tet_fem_from_arrays(tet_fem_arrays(plant), device="cpu")
+
+
+def precond_operator(p):
+    """S_q diag(1/S_lam) S_q^T, numpy."""
+    return to_numpy((p.S_q / p.S_lam) @ p.S_q.T)
+
+
+def phase_tet_small(card, dev):
+    """Phase 23(a): the box in f64 on the card against the CPU: its build's
+    preconditioner operator against the CPU's own build; on the same
+    leaves, TET_SMALL_STEPS steps under seeded inputs (PCG iterations of
+    each step equal), a batched step of 4 lanes (one at rest: no
+    iteration), solve_st_multi and both projections at one point, a
+    with_young_scale settle, mode_shapes and a short modal_decay_batch."""
+    t0 = time.perf_counter()
+    pc = small_box(dev)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    ph = on_cpu(pc)
+    diffs = {"operator": scaled(precond_operator(pc),
+                                precond_operator(small_box("cpu")))}
+    rng = np.random.default_rng(23)
+    us = 40.0 * rng.random((TET_SMALL_STEPS, 2))
+    xc, xh = pc.x_rest(), ph.x_rest()
+    its_c, its_h, traj, worst = [], [], [to_numpy(xh)], 0.0
+    for u in us:
+        xc, kc = pc.step_iters(xc, torch.as_tensor(u, device=dev), pc.dt)
+        xh, kh = ph.step_iters(xh, torch.as_tensor(u), ph.dt)
+        its_c.append(int(kc))
+        its_h.append(int(kh))
+        traj.append(to_numpy(xh))
+        worst = max(worst, scaled(xc, xh))
+    diffs["steps"] = worst
+    print(f"[tet box 45 nodes] {TET_SMALL_STEPS} f64 steps: card vs CPU "
+          f"{worst:.3e} of the state's scale; PCG iterations a step, card "
+          f"{its_c}, CPU {its_h} [{card}]")
+    check(its_c == its_h, "tet box: PCG iterations differ from the CPU's")
+    # a batched step: lanes along the run, one at rest with no input
+    X = np.stack([traj[10], traj[20], to_numpy(ph.x_rest()), traj[29]])
+    Ub = np.stack([us[10], [300.0, 0.0], [0.0, 0.0], us[29]])
+    bc, kbc = pc.step_iters(torch.as_tensor(X, device=dev),
+                            torch.as_tensor(Ub, device=dev), pc.dt)
+    bh, kbh = ph.step_iters(torch.as_tensor(X), torch.as_tensor(Ub), ph.dt)
+    alone = [int(ph.step_iters(torch.as_tensor(x), torch.as_tensor(u),
+                               ph.dt)[1]) for x, u in zip(X, Ub)]
+    diffs["batched_step"] = scaled(bc, bh)
+    print(f"[tet box 45 nodes] batched step, B=4 (lane 2 at rest): "
+          f"iterations card {kbc.tolist()}, CPU {kbh.tolist()}, each lane "
+          f"alone on the CPU {alone} [{card}]")
+    # lane 2's rhs is 0 on the CPU (f_int(rest) = 0 exactly); the card's
+    # products may leave it a rounding residual worth an iteration
+    check(kbh.tolist() == alone and alone[2] == 0 and int(kbc[2]) <= 1
+          and all(kbc[i] == kbh[i] for i in (0, 1, 3)),
+          "tet box: batched step iterations")
+    # solve_st_multi and the projections at one point
+    x = torch.as_tensor(traj[20])
+    q = x[pc.n_nodes_dof:]
+    Bc = rng.normal(size=(pc.n_nodes_dof, 6)) * to_numpy(ph.free_mask)[:, None]
+    sols = {}
+    for name, p, d in (("card", pc, dev), ("cpu", ph, "cpu")):
+        R = p.rotations(q.to(d))
+        sols[name] = p.solve_st_multi_iters(torch.as_tensor(Bc, device=d), R,
+                                            p.node_rotations(R))
+    diffs["solve_st_multi"] = scaled(sols["card"][0], sols["cpu"][0])
+    check(int(sols["card"][1]) == int(sols["cpu"][1]),
+          "tet box: solve_st_multi iterations")
+    U, _ = np.linalg.qr(rng.normal(size=(pc.n_nodes_dof, 4)))
+    info = {"U": U, "q_ref": to_numpy(ph.q_eq),
+            "v_ref": np.zeros(pc.n_nodes_dof)}
+    u1 = torch.as_tensor([30.0, 10.0], dtype=torch.float64)
+    proj = {}
+    for name, p, d in (("card", pc, dev), ("cpu", ph, "cpu")):
+        rom = POD(info, device=d)
+        proj[name] = (p.reduced_discrete_dynamics(rom, x.to(d), u1.to(d),
+                                                  p.dt)
+                      + p.reduced_affine_dynamics(rom, x.to(d), u1.to(d)))
+    diffs["projections"] = max(scaled(a, b) for a, b in zip(
+        proj["card"], proj["cpu"]))
+    # with_young_scale's settle, the modes and a short decay
+    yc = with_young_scale(pc, 1.2, alpha=0.8, settle_time=0.1)
+    yh = with_young_scale(ph, 1.2, alpha=0.8, settle_time=0.1)
+    diffs["young_scale"] = max(scaled(yc.q_eq, yh.q_eq),
+                               scaled(yc.S_lam, yh.S_lam))
+    wc, mc = mode_shapes(pc, n_modes=4)
+    wh, _ = mode_shapes(ph, n_modes=4)
+    diffs["mode_frequencies"] = scaled(wc, wh)
+    dc = modal_decay_batch(pc, mc[:, :2].T, amplitudes=[2.0], duration=0.1,
+                           dt=pc.dt)
+    dh = modal_decay_batch(ph, mc[:, :2].T, amplitudes=[2.0], duration=0.1,
+                           dt=ph.dt)
+    check(sorted(dc) == sorted(dh) and len(dc) == 4, "tet box: decay cases")
+    diffs["modal_decay"] = max(scaled(dc[k], dh[k]) for k in dc)
+    for k, v in diffs.items():
+        print(f"[tet box 45 nodes] {k}: card vs f64 CPU {v:.3e} of the "
+              f"scale (limit {TET_SMALL_TOL}) [{card}]")
+        check(v <= TET_SMALL_TOL, f"tet box: {k} differs by {v}")
+    out.update(diffs=diffs, iterations=its_c, batched_iterations=alone,
+               solve_st_multi_iterations=int(sols["card"][1]),
+               mode_frequencies=wc.tolist())
+    return out
+
+
+@contextlib.contextmanager
+def build_parts():
+    """Within the block, the wall seconds of the tet build's parts (the
+    element stiffnesses, K0, the step matrix's eigh, the gravity settle),
+    summed by part, device synchronized on both sides of each."""
+    parts = {}
+    names = {"_element_stiffness": "element_stiffness",
+             "_assemble_k0": "K0", "_step_factor": "eigh",
+             "_settle": "settle"}
+    real = {n: getattr(fem_tet, n) for n in names}
+
+    def timed(n):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real[n](*a, **k)
+            torch.cuda.synchronize()
+            parts[names[n]] = parts.get(names[n], 0.0) + (
+                time.perf_counter() - t0)
+            return r
+        return run
+
+    for n in names:
+        setattr(fem_tet, n, timed(n))
+    try:
+        yield parts
+    finally:
+        for n in names:
+            setattr(fem_tet, n, real[n])
+
+
+def tet_step_time(tag, plant, x, u, card):
+    """TET_TIMED_STEPS steps of the plant from the state x under u: ms a
+    step on the host clock (device synchronized), device ms a step and
+    busy share from a profiled pass, the PCG iterations of the step."""
+    its = int(plant.step_iters(x, u, plant.dt)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TET_TIMED_STEPS):
+        plant.step(x, u, plant.dt)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    prof = profile_device(f"{tag} [{card}]", lambda: [
+        plant.step(x, u, plant.dt) for _ in range(TET_TIMED_STEPS)], wall,
+        host_ops=False)
+    out = dict(ms=wall / TET_TIMED_STEPS,
+               device_ms=prof["device_ms"] / TET_TIMED_STEPS,
+               device_busy_share=prof["device_busy_share"],
+               device_ops=prof["device_kernel_launches"] / TET_TIMED_STEPS,
+               pcg_iterations=its)
+    print(f"[{tag}] {out['ms']:.3f} ms a step (host clock), "
+          f"{out['device_ms']:.3f} ms of device time, "
+          f"{out['device_ops']:.0f} device operations, {its} PCG iterations "
+          f"[{card}]")
+    return out
+
+
+def tet_wide_robot(path, dev, dtype):
+    """DiamondTetRobot on the mesh file in `dtype` on `dev`, the build's
+    wall seconds and its parts'."""
+    with build_parts() as parts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        robot = DiamondTetRobot(mesh_path=path, cache=False, device=dev,
+                                dtype=dtype)
+        torch.cuda.synchronize()
+    return robot, dict(total=time.perf_counter() - t0, **parts)
+
+
+def tet_plant_wide(robot, name, card, dev, x_load=None):
+    """The plant's step timed from rest and under TET_LOAD mN on cable 0
+    (after TET_LOAD_STEPS loaded steps from rest, or at x_load), and
+    solve_st_multi at TET_COLUMNS columns there; the loaded run's states
+    and iterations."""
+    p = robot.plant
+    tag = f"tet {p.n_nodes} nodes {name}"
+    u0 = torch.zeros(4, dtype=p.dtype, device=dev)
+    uL = u0.clone()
+    uL[0] = TET_LOAD
+    out = {"rest": tet_step_time(f"{tag} step from rest", p, p.x_rest(), u0,
+                                 card)}
+    x, run, its = p.x_rest(), [], []
+    if x_load is None:
+        for _ in range(TET_LOAD_STEPS):
+            x, k = p.step_iters(x, uL, p.dt)
+            run.append(x)
+            its.append(int(k))
+        print(f"[{tag}] {TET_LOAD_STEPS} steps from rest under "
+              f"{TET_LOAD:g} mN on cable 0: PCG iterations {its} [{card}]")
+    else:
+        x = x_load.to(p.dtype)
+    out["loaded"] = tet_step_time(f"{tag} step under {TET_LOAD:g} mN", p, x,
+                                  uL, card)
+    rng = np.random.default_rng(230)
+    Bc = torch.as_tensor(rng.normal(size=(p.n_nodes_dof, TET_COLUMNS)),
+                         dtype=p.dtype, device=dev) * p.free_mask[:, None]
+    R = p.rotations(x[p.n_nodes_dof:])
+    Rn = p.node_rotations(R)
+    k = int(p.solve_st_multi_iters(Bc, R, Rn)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.solve_st_multi(Bc, R, Rn)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    out["solve_st_multi"] = dict(columns=TET_COLUMNS, ms=ms, iterations=k)
+    print(f"[{tag}] solve_st_multi, {TET_COLUMNS} columns at the loaded "
+          f"state: {ms:.3f} ms (host clock), {k} PCG iterations [{card}]")
+    out["load_iterations"] = its
+    return out, run, x
+
+
+def figure8(z_eq, duration):
+    """examples/diamond_tet_campaign.py:158-168's figure-8 about z_eq over
+    `duration` seconds: (t, z)."""
+    tt = np.linspace(0, duration, 1000)
+    th = np.linspace(0, 2 * np.pi * duration / 10.0, 1000)
+    z = np.tile(np.asarray(z_eq, float), (1000, 1))
+    z[:, 0] += -20.0 * np.sin(th) - 5.5
+    z[:, 1] += 10.0 * np.sin(2 * th) + 1.5
+    return tt, z
+
+
+def tet_campaign_stages(robot, d, samples, check_samples, sim_duration):
+    """The campaign's stages at its --quick settings (TET_CAMPAIGN, sample
+    counts and the loop's seconds as given) into directory d, in order:
+    name -> fn."""
+    c = TET_CAMPAIGN
+    Hf = robot.get_output_model()
+    tt, z_t = figure8(Hf @ to_numpy(robot.plant.x_rest()), sim_duration)
+    return {
+        "pod_data": lambda: recipes.collect_pod_data(
+            robot, d, nbr_samples=samples, t_step=c["t_step"]),
+        "pod_basis": lambda: recipes.compute_pod_basis(
+            d, pod_tolerance=c["pod_tol"], pod_type="a",
+            rom_dim=c["rom_dim"]),
+        "tpwl_data": lambda: recipes.collect_tpwl_data(
+            robot, d, threshold=c["threshold"], nbr_samples=samples,
+            t_step=c["t_step"], dynamics="discrete", eval_type="distance"),
+        "rollout_check": lambda: recipes.tpwl_rollout_check(
+            robot, d, nbr_samples=check_samples, seed=c["check_seed"],
+            t_step=c["t_step"]),
+        "run_scp": lambda: (tt, z_t, recipes.run_scp(
+            robot, d, tt, z_t, dt_solver=robot.dt, N=c["N"],
+            N_replan=c["N_replan"], Qz=np.diag([100.0, 100.0, 0.0]),
+            R=1e-5 * np.eye(4), sim_duration=sim_duration, delay=c["delay"],
+            U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
+            save_prefix="scp_fig8", max_gusto_iters=0, is_tr_active=False,
+            locp_backend="condensed", oneshot_iters=2, plan_bound=60.0)),
+    }
+
+
+def tracking_rmse(sim, tt, z_t, delay):
+    """The campaign's score (examples/diamond_tet_campaign.py:200-209): RMS
+    of the x-y distance to the delay-shifted target from t = 1 s on."""
+    z, t = np.asarray(sim["z"]), np.asarray(sim["t"])
+    zt = np.stack([np.interp(t - delay, tt, z_t[:, j]) for j in range(3)],
+                  axis=1)
+    active = t >= 1.0
+    return float(np.sqrt(np.mean(np.sum(
+        (z[active][:, :2] - zt[active][:, :2]) ** 2, axis=1))))
+
+
+def phase_tet_wide(card, dev):
+    """Phase 23(b): DiamondTetRobot on the box of the Diamond's width (its
+    build split into parts, f64 and f32), the plant step from rest and
+    under load in both, solve_st_multi at TET_COLUMNS columns, the f32
+    step against f64, the first TET_WIDE_STEPS loaded steps against the
+    f64 plant carried to the CPU; then the campaign's --quick stages in
+    f64 (wall time, busy share from a profiled pass of each at
+    TET_PROFILE_SAMPLES samples), P, the rollout's MSE and rel_err, the
+    loop's tracking RMSE and plan rejects, kernel 2's launches a rollout
+    step and a query (held to its plain version on the rollout's first
+    launch and timed), the peak memory."""
+    pts, tets = make_box_mesh(*TET_BOX, spacing=10.0)
+    pts = pts - np.asarray(TET_SHIFT)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "box_diamond_width.vtu")
+        write_vtu_ascii(path, pts, tets)
+        robot, out["build_f64_s"] = tet_wide_robot(path, dev,
+                                                   torch.float64)
+        p = robot.plant
+        n_fixed = int((p.free_mask == 0).sum()) // 3
+        cols = to_numpy(p.H.reshape(-1, 3, 4).sum(0).norm(dim=0))
+        print(f"[tet wide] box mesh {TET_BOX} at spacing 10 minus "
+              f"{TET_SHIFT} in the Diamond's scene: {p.n_nodes} nodes, "
+              f"{p.tets.shape[0]} tets, state {p.state_dim}, {n_fixed} "
+              f"fixed nodes, cable columns' net force {cols.round(6)}; "
+              f"f64 build (s): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in out["build_f64_s"].items())
+              + f" [{card}]")
+        check(n_fixed > 0 and np.allclose(cols, 1.0) and p.n_nodes > 1354,
+              "tet wide: the box does not fit the Diamond's scene")
+        out.update(nodes=p.n_nodes, tets=int(p.tets.shape[0]),
+                   fixed_nodes=n_fixed, state_dim=p.state_dim)
+        out["f64"], run, x_load = tet_plant_wide(robot, "f64", card, dev)
+        r32, out["build_f32_s"] = tet_wide_robot(path, dev, torch.float32)
+        print("[tet wide] f32 build (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out["build_f32_s"].items())
+            + f" [{card}]")
+        out["f32"], _, _ = tet_plant_wide(r32, "f32", card, dev, x_load)
+    uL = torch.zeros(4, dtype=torch.float64, device=dev)
+    uL[0] = TET_LOAD
+    x64 = p.step(x_load, uL, p.dt)
+    x32 = r32.plant.step(x_load.float(), uL.float(), p.dt)
+    out["f32_step_rel_err"] = scaled(x32.double(), x64)
+    print(f"[tet wide] f32 step against the f64 step at the loaded state: "
+          f"{out['f32_step_rel_err']:.3e} of the state's scale [{card}]")
+    del r32
+    torch.cuda.empty_cache()
+    # the f64 plant carried to the CPU: the first loaded steps
+    t0 = time.perf_counter()
+    cpu = on_cpu(p)
+    xh = cpu.x_rest()
+    worst = 0.0
+    for k in range(TET_WIDE_STEPS):
+        xh = cpu.step(xh, uL.cpu(), cpu.dt)
+        worst = max(worst, scaled(run[k], xh))
+    del cpu
+    out["first_steps_rel_diff"] = worst
+    print(f"[tet wide] the first {TET_WIDE_STEPS} steps under "
+          f"{TET_LOAD:g} mN against the f64 plant on the CPU: {worst:.3e} "
+          f"of the state's scale (limit {TET_WIDE_TOL}); CPU "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    check(worst <= TET_WIDE_TOL, f"tet wide: steps off the CPU by {worst}")
+    out["campaign"] = tet_campaign(robot, card, dev)
+    return out
+
+
+def tet_campaign(robot, card, dev):
+    """The campaign's --quick stages on the wide robot in f64; see
+    phase_tet_wide."""
+    c = TET_CAMPAIGN
+    fns = tet_campaign_stages(robot, TET_DIR, c["samples"],
+                              c["check_samples"], c["sim_duration"])
+    stages = {}
+    stage = stage_runner(stages)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {k: stage(k, fns[k]) for k in ("pod_data", "pod_basis",
+                                         "tpwl_data")}
+    reset_counts()
+    with recording(select_ops, "_launch", n=1, clone=1) as sel:
+        res["rollout_check"] = stage("rollout_check", fns["rollout_check"])
+    roll = read_counts()
+    reset_counts()
+    with launches_per_call(GuSTOService, "_solve") as per_query:
+        tt, z_t, sim = stage("run_scp", fns["run_scp"])
+    loop = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    snap, pod, model, chk = (res[k] for k in ("pod_data", "pod_basis",
+                                              "tpwl_data", "rollout_check"))
+    n_roll = len(chk["z_rom"]) - 1
+    q = np.asarray(per_query)
+    rmse = tracking_rmse(sim, tt, z_t, c["delay"])
+    rejects = int(sim["info"].get("plan_rejects", 0))
+    r = pod["POD_info"]["U"].shape[1]
+    print(f"[tet campaign] f64, {robot.plant.n_nodes} nodes: stage wall "
+          "times (s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    stages.items())
+          + f"; {len(snap['u'])} POD sweep steps, r = {r}, P = "
+          f"{model.num_points}; rollout MSE {chk['mse']:.6e}, rel_err "
+          f"{chk['rel_err']:.6e}; loop tracking RMSE {rmse:.4f} mm, "
+          f"{rejects} plan rejects, {len(q)} GuSTO queries; peak device "
+          f"memory {peak_gb:.3f} GB [{card}]")
+    print(f"[tet campaign] kernel 2: {roll['tpwl_select']} launches in the "
+          f"rollout check's {n_roll} steps; a GuSTO query: min {q.min()}, "
+          f"median {np.median(q):.0f}, max {q.max()}; the loop's launches "
+          f"{loop} [{card}]")
+    check(roll["tpwl_select"] == n_roll and all(
+        roll[k] == 0 for k in KERNELS if k != "tpwl_select"),
+        f"tet campaign: rollout launches {roll}")
+    check(len(q) > 0 and q.min() > 0 and all(
+        loop[k] == 0 for k in KERNELS if k != "tpwl_select"),
+        f"tet campaign: loop launches {loop}")
+    nums = [chk["mse"], chk["rel_err"], rmse, peak_gb] + list(stages.values())
+    check(bool(np.isfinite(nums).all()) and np.isfinite(sim["z"]).all()
+          and model.num_points >= 2 and r == c["rom_dim"],
+          "tet campaign: a non-finite number, or r or P off")
+    out = dict(stages_s=dict(stages), sweep_steps=len(snap["u"]), r=r,
+               points=model.num_points, rollout_mse=chk["mse"],
+               rollout_rel_err=chk["rel_err"], tracking_rmse_mm=rmse,
+               plan_rejects=rejects, queries=len(q),
+               launches_per_query=q.tolist(), rollout_launches=roll,
+               loop_launches=loop, peak_device_gb=peak_gb,
+               launches={k: roll[k] + loop[k] for k in roll})
+    # where each stage's time goes: each once more, cut, timed then under
+    # the profiler, into a directory of its own
+    few = tet_campaign_stages(robot, TET_DIR + "_profiled",
+                              TET_PROFILE_SAMPLES, TET_PROFILE_SAMPLES,
+                              TET_PROFILE_SCP_S)
+    cut_s = {}
+    stage_cut = stage_runner(cut_s)
+    out["profile"] = {}
+    for k, f in few.items():
+        stage_cut(k, f)
+        out["profile"][k] = profile_device(
+            f"tet campaign {k} (cut: {TET_PROFILE_SAMPLES} samples, "
+            f"{TET_PROFILE_SCP_S} s loop) [{card}]", f, 1e3 * cut_s[k],
+            host_ops=False)
+    out["profile_stages_s"] = cut_s
+    # kernel 2 at the rollout's shape (B=1, the dictionary's P)
+    check(len(sel) == 1 and sel[0][0].shape[0] == 1,
+          "tet campaign: no launch of tpwl_select at B=1 recorded")
+    a = sel[0]
+    out["select"] = hold_select("tet campaign rollout", a[:8], a[8])
+    out["select_row"] = select_row("tet campaign rollout",
+                                   (a[0],) + tuple(a[1:8]), 0, card)
+    out["select_row"]["launches"] = out["launches"]["tpwl_select"]
+    return out
+
+
 class PhaseClock:
     """Wall seconds of each group of phases, printed as each ends, so that
     a run's time against its limit can be read by phase."""
@@ -3045,6 +3549,13 @@ def main():
     rec["pipeline"] = phase_pipeline_wide(card, dev)
     torch.cuda.empty_cache()
 
+    phase_clock.start("23")
+    # 23. the tet-FEM plant: the box against the CPU, then the Diamond's
+    # width and the Diamond tet campaign's --quick stages
+    rec["tet_small"] = phase_tet_small(card, dev)
+    rec["tet"] = phase_tet_wide(card, dev)
+    torch.cuda.empty_cache()
+
     phase_clock.start(None)
     rec["phase_s"] = phase_clock.seconds
     k2 = rec["tpwl_select"]["plan"]
@@ -3078,7 +3589,8 @@ def main():
              **{f"policy_{k}": v["launches"]
                 for k, v in rec["policies"].items()},
              "pipeline_small": rec["pipeline_small"]["launches"],
-             "pipeline": rec["pipeline"]["launches"]}
+             "pipeline": rec["pipeline"]["launches"],
+             "tet_campaign": rec["tet"]["campaign"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -3157,6 +3669,10 @@ def main():
     r = rec["pipeline"]
     kernels.append(entry("tpwl_select", "pallas_tpwl.py:24", "pipeline",
                          r["select"]["max_abs_err"], r["select_row"]))
+    # and at a step of the tet campaign's rollout check (phase 23)
+    r = rec["tet"]["campaign"]
+    kernels.append(entry("tpwl_select", "pallas_tpwl.py:24", "tet_campaign",
+                         r["select"]["max_abs_err"], r["select_row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -3169,7 +3685,8 @@ def main():
                           rec["koopman"]["kernel_row"],
                           rec["gusto_stage"]["select_row"],
                           rec["campaign_loop"]["f32"]["select_row"],
-                          rec["pipeline"]["select_row"]]
+                          rec["pipeline"]["select_row"],
+                          rec["tet"]["campaign"]["select_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

@@ -8,7 +8,8 @@ dict of numpy arrays, with the POD basis as the dict {"U", "q_ref",
 `model_from_arrays`. An SSMModel goes the same way through
 `ssm_model_arrays` and `ssm_model_from_arrays`, a KoopmanModel through
 `koopman_model_arrays` and `koopman_model_from_dict`, a FEMSurrogate plant
-through `surrogate_arrays` and `surrogate_from_arrays`. `flatten_arrays`
+through `surrogate_arrays` and `surrogate_from_arrays`, a TetFEM plant
+through `tet_fem_arrays` and `tet_fem_from_arrays`. `flatten_arrays`
 and `unflatten_arrays` carry such nested dicts through an `.npz` file.
 This module itself imports nothing of JAX.
 """
@@ -25,6 +26,7 @@ from soft_robot_control_tpu_torch.models.ssm import SSMModel
 from soft_robot_control_tpu_torch.models.tpwl import TPWLModel
 from soft_robot_control_tpu_torch.rom.pod import POD
 from soft_robot_control_tpu_torch.sim.fem_surrogate import FEMSurrogate
+from soft_robot_control_tpu_torch.sim.fem_tet import LEAVES, TetFEM
 
 _ARRAYS = ("q", "v", "u", "A_c", "B_c", "d_c", "A_d", "B_d", "d_d", "C",
            "y_ref", "H", "z_ref")
@@ -132,6 +134,24 @@ def surrogate_from_arrays(arrays: dict, device="cuda") -> FEMSurrogate:
     """This package's FEMSurrogate from a plant's arrays (see
     `surrogate_arrays`), on `device`."""
     return FEMSurrogate(*(arrays[k] for k in _SURROGATE), device=device)
+
+
+_TET_STATIC = ("dt", "cg_iters", "cg_tol")
+
+
+def tet_fem_arrays(plant) -> dict:
+    """The dict `tet_fem_from_arrays` takes, from any object with the
+    TetFEM attributes (the JAX plant or this package's): its 15 leaves as
+    numpy arrays (m_node, alpha and beta 0-d) and dt, cg_iters, cg_tol."""
+    out = {k: _np(getattr(plant, k)) for k in LEAVES}
+    out.update({k: getattr(plant, k) for k in _TET_STATIC})
+    return out
+
+
+def tet_fem_from_arrays(arrays: dict, device="cuda") -> TetFEM:
+    """This package's TetFEM from a plant's leaves and static fields (see
+    `tet_fem_arrays`), in the leaves' dtype on `device`."""
+    return TetFEM(*(arrays[k] for k in LEAVES + _TET_STATIC), device=device)
 
 
 def flatten_arrays(tree: dict, prefix: str = "") -> dict:

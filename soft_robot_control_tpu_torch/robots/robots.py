@@ -11,7 +11,8 @@ nodes, its time step and its sequences:
 - Trunk: 8 cables, u in [0, 800] (robots/environments.py:44);
 - Finger: 1 cable, u in [0, 2000] (open_loop_sequences.py:244-250).
 The robots on the tet-FEM meshes (TetMeshRobot, DiamondTetRobot,
-TrunkTetRobot) come with the port of that plant.
+TrunkTetRobot) carry `sim/fem_tet.py`'s plant, built from the reference's
+mesh or from the mesh file at `mesh_path`.
 """
 
 from __future__ import annotations
@@ -147,3 +148,98 @@ class FingerRobot(SurrogateRobot):
 
     def _make_sequences(self):
         return seqs.FingerRobotSequences(dt=self.dt, t0=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Reference-mesh tet-FEM robots (full scale)
+
+
+class TetMeshRobot:
+    """Robot over the tet-FEM plant built from the reference's shipped mesh
+    (or a mesh file at `mesh_path`): full reference dimensions (Diamond
+    1628 nodes -> 9768-dim state, Trunk 709 -> 4254). Measurement and
+    output models follow the reference node conventions with 3 DoF a node
+    (sofacontrol/measurement_models.py). The plant keyword arguments
+    (device, dtype, mesh_path, cache, gravity_on, ...) go to the plant's
+    builder; the plant lies on `device` ("cuda" by default)."""
+
+    name = "tetmesh"
+    n_cables = 4
+    u_min = 0.0
+    u_max = 1.0
+    dt = 0.01
+    default_output_nodes = [0]
+    default_measurement_nodes = [0]
+
+    def __init__(self, dt: float = None, **plant_kwargs):
+        if dt is not None:
+            self.dt = dt
+        self.plant = self._make_plant(dt=self.dt, **plant_kwargs)
+        self.nb_nodes = self.plant.n_nodes
+        self.sequences = self._make_sequences()
+
+    def _make_plant(self, **kw):
+        raise NotImplementedError
+
+    def _make_sequences(self):
+        s = seqs.BaseRobotSequences(
+            self.n_cables, u0=np.zeros(self.n_cables),
+            umax=self.u_max * np.ones(self.n_cables),
+            umin=self.u_min * np.ones(self.n_cables), dt=self.dt, t0=1.0)
+        s.active_inputs = [True] * self.n_cables
+        return s
+
+    def get_measurement_model(self, nodes=None, pos=True, vel=True):
+        from soft_robot_control_tpu_torch.sim.measurement import linearModel
+        nodes = nodes if nodes is not None else self.default_measurement_nodes
+        return linearModel(nodes, self.nb_nodes, pos=pos, vel=vel).C_dense()
+
+    def get_output_model(self, nodes=None, pos=True, vel=False):
+        """Position outputs of the end-effector node by default (the
+        reference tracks node positions; velocities excluded unless asked,
+        examples/diamond/diamond.py:167,222)."""
+        from soft_robot_control_tpu_torch.sim.measurement import linearModel
+        nodes = nodes if nodes is not None else self.default_output_nodes
+        return linearModel(nodes, self.nb_nodes, pos=pos, vel=vel).C_dense()
+
+
+class DiamondTetRobot(TetMeshRobot):
+    """Hardware-calibrated Diamond on the shipped diamond.vtu
+    (examples/hardware/model.py:28-45; robots/environments.py:139-238).
+    End effector node 1354, elbows [726, 139, 1445, 729]
+    (examples/diamond/diamond.py:14-15)."""
+
+    name = "diamond_tet"
+    n_cables = 4
+    u_min = 0.0
+    u_max = 1500.0
+    dt = 0.01
+    default_output_nodes = [1354]
+    default_measurement_nodes = [1354, 726, 139, 1445, 729]
+
+    def _make_plant(self, **kw):
+        from soft_robot_control_tpu_torch.sim.fem_tet import diamond_tet_fem
+        return diamond_tet_fem(**kw)
+
+    def _make_sequences(self):
+        return seqs.DiamondRobotSequences(dt=self.dt, t0=1.0)
+
+
+class TrunkTetRobot(TetMeshRobot):
+    """Trunk on the shipped trunk.vtk (robots/environments.py:39-137).
+    Tip node 51, defaults [51, 22, 37] (examples/trunk/trunk.py:15)."""
+
+    name = "trunk_tet"
+    n_cables = 8
+    u_min = 0.0
+    u_max = 800.0
+    dt = 0.01
+    default_output_nodes = [51]
+    default_measurement_nodes = [51, 22, 37]
+
+    def _make_plant(self, **kw):
+        from soft_robot_control_tpu_torch.sim.fem_tet import trunk_tet_fem
+        return trunk_tet_fem(**kw)
+
+    def _make_sequences(self):
+        return seqs.TrunkRobotSequences(dt=self.dt, t0=1.0)

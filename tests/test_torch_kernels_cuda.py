@@ -890,3 +890,51 @@ def test_campaign_scp_on_the_card_matches_the_cpu(cuda_device):
     assert card[2] > 0 and cpu[2] == 0
     for got, ref in zip(card[:2], cpu[:2]):
         assert np.abs(got - ref).max() <= 1e-6 * max(np.abs(ref).max(), 1.0)
+
+
+def test_tet_plant_on_the_card_matches_the_cpu(cuda_device):
+    """tests/test_fem_tet.py:51-61's box plant built on the card in f64 and
+    carried to the CPU (models/convert.py): 10 steps under seeded inputs
+    (the same PCG iterations) and reduced_discrete_dynamics at the last
+    state within 1e-9 of their scale."""
+    from soft_robot_control_tpu_torch.models.convert import (
+        tet_fem_arrays, tet_fem_from_arrays)
+    from soft_robot_control_tpu_torch.rom.pod import POD
+    from soft_robot_control_tpu_torch.sim.fem_tet import (build_tet_fem,
+                                                          make_box_mesh)
+
+    pts, tets = make_box_mesh(3, 3, 5)
+    cables = [{"waypoints": np.array([[10.0, 10.0, 38.0]]),
+               "pull_point": np.array([10.0, 10.0, 0.0])},
+              {"waypoints": np.array([[2.0, 10.0, 15.0], [2.0, 10.0, 25.0],
+                                      [2.0, 10.0, 38.0]])}]
+    card = build_tet_fem(pts, tets, young=200.0, poisson=0.45,
+                         total_mass=0.05, alpha=0.5, beta=0.02,
+                         fixed_box=(-1.0, -1.0, -1.0, 21.0, 21.0, 1.0),
+                         cables=cables, dt=0.01, device=cuda_device)
+    cpu = tet_fem_from_arrays(tet_fem_arrays(card), device="cpu")
+    rng = np.random.default_rng(0)
+    xs = {}
+    for p in (card, cpu):
+        x, its = p.x_rest(), []
+        for u in 40.0 * rng.random((10, 2)):
+            x, k = p.step_iters(x, torch.as_tensor(u, device=p.device),
+                                p.dt)
+            its.append(int(k))
+        xs[p.device.type] = (x, its)
+        rng = np.random.default_rng(0)
+    (xc, kc), (xh, kh) = xs["cuda"], xs["cpu"]
+    assert kc == kh
+    scale = float(xh.abs().max())
+    assert float((xc.cpu() - xh).abs().max()) <= 1e-9 * scale
+    U, _ = np.linalg.qr(rng.normal(size=(card.n_nodes_dof, 4)))
+    info = {"U": U, "q_ref": card.q_eq.cpu().numpy(),
+            "v_ref": np.zeros(card.n_nodes_dof)}
+    u = torch.tensor([30.0, 10.0], dtype=torch.float64)
+    got = card.reduced_discrete_dynamics(POD(info, device=cuda_device),
+                                         xc, u.to(cuda_device), card.dt)
+    ref = cpu.reduced_discrete_dynamics(POD(info, device="cpu"), xh, u,
+                                        cpu.dt)
+    for g, r in zip(got, ref):
+        assert float((g.cpu() - r).abs().max()) <= 1e-9 * float(
+            r.abs().max())

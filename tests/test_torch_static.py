@@ -125,6 +125,12 @@ def _entry_points():
     from soft_robot_control_tpu_torch.robots import DiamondRobot
     from soft_robot_control_tpu_torch.tasks.recipes import (collect_pod_data,
                                                             run_scp)
+    from soft_robot_control_tpu_torch.models.convert import (
+        tet_fem_from_arrays)
+    from soft_robot_control_tpu_torch.robots import robots
+    from soft_robot_control_tpu_torch.sim.fem_tet import (LEAVES, TetFEM,
+                                                          build_tet_fem,
+                                                          make_box_mesh)
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
@@ -135,6 +141,12 @@ def _entry_points():
     cost = QuadraticCost(np.eye(2), np.eye(1))
     scale = {k: np.ones(2 if k[0] == "y" else 1) for k in (
         "y_offset", "y_factor", "u_offset", "u_factor")}
+
+    pts, tets = make_box_mesh(2, 2, 2)
+    box = dict(young=100.0, poisson=0.4, total_mass=0.01, alpha=1.0,
+               beta=0.01, fixed_box=(-1, -1, -1, 11, 11, 1), dt=0.01,
+               cables=[{"waypoints": np.full((1, 3), 5.0)}])
+    leaves = {k: np.zeros(1) for k in LEAVES}
 
     return {
         "from_tpwl_dict": lambda: from_tpwl_dict(CAMPAIGN),
@@ -192,6 +204,12 @@ def _entry_points():
                                                      os.devnull),
         "run_scp": lambda: run_scp(DiamondRobot(n_nodes=3), os.devnull,
                                    np.zeros(2), np.zeros((2, 1))),
+        "build_tet_fem": lambda: build_tet_fem(pts, tets, **box),
+        "TetFEM": lambda: TetFEM(*leaves.values(), 0.01),
+        "tet_fem_from_arrays": lambda: tet_fem_from_arrays(
+            {**leaves, "dt": 0.01, "cg_iters": 80, "cg_tol": 1e-6}),
+        "DiamondTetRobot": lambda: robots.DiamondTetRobot(
+            mesh_path=os.devnull, cache=False),
     }
 
 
@@ -209,7 +227,9 @@ def _entry_points():
                                   "KoopmanMPC", "make_chain_robot",
                                   "FEMSurrogate", "surrogate_from_arrays",
                                   "build_tpwl_model", "DiamondRobot",
-                                  "collect_pod_data", "run_scp"])
+                                  "collect_pod_data", "run_scp",
+                                  "build_tet_fem", "TetFEM",
+                                  "tet_fem_from_arrays", "DiamondTetRobot"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -240,12 +260,10 @@ def test_subpackages_reexport_the_jax_names(sub):
 
 
 # Public names of ported JAX files that later slices bring, each with its
-# ROADMAP.md section 1 item: the closed-loop recipes (item 4) and the
-# robots on the tet-FEM meshes (item 2)
+# ROADMAP.md section 1 item: the closed-loop recipes (item 4)
 LEFT_TO_LATER = {
     "tasks/recipes.py": {"run_ilqr", "run_scp_open_loop", "run_rompc",
                          "run_koopman"},
-    "robots/robots.py": {"TetMeshRobot", "DiamondTetRobot", "TrunkTetRobot"},
 }
 
 
