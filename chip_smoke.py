@@ -167,17 +167,20 @@ the tolerances stated below.
    Diamond's width in its scene (1,584 nodes, a 9,504-dim state; written
    as a .vtu to a temporary directory), built in f64 and f32 (seconds of
    the element stiffnesses, K0, the eigh, the settle), the plant step from
-   rest and under 1,500 mN on one cable (host ms, device ms and busy share
-   from a device-only profiled pass, PCG iterations), solve_st_multi at
-   64 columns, the f32 step against the f64 one, the first 5 loaded steps
-   against the f64 plant carried to the CPU; then the campaign's --quick
+   rest and under 1,500 mN on one cable (the median of 200 steps on the
+   host clock, device ms and busy share from a device-only profiled pass,
+   PCG iterations), solve_st_multi at 64 columns, the f32 step against the
+   f64 one (within TET_F32_TOL), the first 5 loaded steps against the f64
+   plant carried to the CPU; then the campaign's --quick
    settings in f64 (examples/diamond_tet_campaign.py:82-85, :124-195: POD
    data, the basis at r = 30, the discrete dictionary at threshold 40,
    the rollout check, run_scp for 3 s on the figure-8): each stage's wall
    time and busy share (a cut, profiled pass), r, P, the rollout's MSE and
    rel_err, the loop's tracking RMSE and plan rejects, kernel 2's launches
-   a rollout step and a query, the peak memory; kernel 2's first rollout
-   launch (B=1, the dictionary's P) held to its plain version and timed.
+   a rollout step and a query, the peak memory; every launch of kernel 2
+   in the rollout check and the loop recorded, the first of each shape
+   (the rollout's B=1, a query's N states) held to its plain version, and
+   both timed.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Each timed kernel row prints the kernel's earlier time on the card
@@ -201,6 +204,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+sys.path.insert(1, os.path.join(HERE, "tests"))   # tet_box: phase 23's box
 
 from soft_robot_control_tpu_torch.control import batch_mpc  # noqa: E402
 from soft_robot_control_tpu_torch.control.batch_mpc import (  # noqa: E402
@@ -264,7 +268,7 @@ from soft_robot_control_tpu_torch.sim import fem_tet  # noqa: E402
 from soft_robot_control_tpu_torch.sim.fem_surrogate import (  # noqa: E402
     simulate)
 from soft_robot_control_tpu_torch.sim.fem_tet import (  # noqa: E402
-    build_tet_fem, make_box_mesh, with_young_scale, write_vtu_ascii)
+    make_box_mesh, with_young_scale, write_vtu_ascii)
 from soft_robot_control_tpu_torch.sim.modal import (  # noqa: E402
     modal_decay_batch, mode_shapes)
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
@@ -275,6 +279,7 @@ from soft_robot_control_tpu_torch.tasks.analysis import (  # noqa: E402
 from soft_robot_control_tpu_torch.tasks.targets import (  # noqa: E402
     sine_setpoint)
 from soft_robot_control_tpu_torch.utils.device import to_numpy  # noqa: E402
+from tet_box import box_plant  # noqa: E402
 
 ARTIFACT = os.path.join(HERE, "examples", "diamond_tet",
                         "tpwl_model_snapshots.pkl")
@@ -473,7 +478,12 @@ TET_BOX, TET_SHIFT = (11, 12, 12), (50.0, 35.0, 55.0)
 TET_LOAD = 1500.0
 TET_WIDE_STEPS = 5
 TET_WIDE_TOL = 1e-9
-TET_TIMED_STEPS = 10       # plant steps timed from one state
+# the f32 step against the f64 step at the loaded state, of the state's
+# scale: PCG's tolerance is 1e-6 and the card read 8.2e-6 (PR 12); a lost
+# mask or a wrong cast reads O(1)
+TET_F32_TOL = 1e-4
+TET_TIMED_STEPS = 200      # plant steps timed from one state, one by one
+TET_PROFILED_STEPS = 10    # of them once more under the profiler
 TET_LOAD_STEPS = 20        # steps under load before the loaded step
 TET_COLUMNS = 64           # solve_st_multi's 2r + m at r = 30, m = 4
 TET_DIR = os.path.join(HERE, "build", "tet_campaign")
@@ -1129,6 +1139,24 @@ def recording(module, name, n=None, clone=8):
         return real(*a, **k)
 
     setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def results_of(module, name):
+    """Within the block, what each call that the code makes to module.name
+    returns (a list)."""
+    real = getattr(module, name)
+    seen = []
+
+    def keep(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+
+    setattr(module, name, keep)
     try:
         yield seen
     finally:
@@ -2969,19 +2997,6 @@ def scaled(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
-def small_box(device):
-    """tests/test_fem_tet.py:51-61's box plant on `device` in f64."""
-    pts, tets = make_box_mesh(3, 3, 5, spacing=10.0)
-    cables = [{"waypoints": np.array([[10.0, 10.0, 38.0]]),
-               "pull_point": np.array([10.0, 10.0, 0.0])},
-              {"waypoints": np.array([[2.0, 10.0, 15.0], [2.0, 10.0, 25.0],
-                                      [2.0, 10.0, 38.0]])}]
-    return build_tet_fem(pts, tets, young=200.0, poisson=0.45,
-                         total_mass=0.05, alpha=0.5, beta=0.02,
-                         fixed_box=(-1.0, -1.0, -1.0, 21.0, 21.0, 1.0),
-                         cables=cables, dt=0.01, device=device)
-
-
 def on_cpu(plant):
     """The plant's leaves carried to a plant on the CPU."""
     return tet_fem_from_arrays(tet_fem_arrays(plant), device="cpu")
@@ -3000,12 +3015,12 @@ def phase_tet_small(card, dev):
     iteration), solve_st_multi and both projections at one point, a
     with_young_scale settle, mode_shapes and a short modal_decay_batch."""
     t0 = time.perf_counter()
-    pc = small_box(dev)
+    pc = box_plant(fem_tet, device=dev)
     torch.cuda.synchronize()
     out = {"build_s": time.perf_counter() - t0}
     ph = on_cpu(pc)
     diffs = {"operator": scaled(precond_operator(pc),
-                                precond_operator(small_box("cpu")))}
+                                precond_operator(box_plant(fem_tet, device="cpu")))}
     rng = np.random.default_rng(23)
     us = 40.0 * rng.random((TET_SMALL_STEPS, 2))
     xc, xh = pc.x_rest(), ph.x_rest()
@@ -3119,25 +3134,30 @@ def build_parts():
 
 
 def tet_step_time(tag, plant, x, u, card):
-    """TET_TIMED_STEPS steps of the plant from the state x under u: ms a
-    step on the host clock (device synchronized), device ms a step and
-    busy share from a profiled pass, the PCG iterations of the step."""
+    """TET_TIMED_STEPS steps of the plant from the state x under u, each
+    timed on the host clock (device synchronized): the median and mean ms
+    a step; device ms a step and busy share from a profiled pass of
+    TET_PROFILED_STEPS; the PCG iterations of the step."""
     its = int(plant.step_iters(x, u, plant.dt)[1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    times = []
     for _ in range(TET_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         plant.step(x, u, plant.dt)
-    torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    wall = float(np.median(times)) * TET_PROFILED_STEPS
     prof = profile_device(f"{tag} [{card}]", lambda: [
-        plant.step(x, u, plant.dt) for _ in range(TET_TIMED_STEPS)], wall,
-        host_ops=False)
-    out = dict(ms=wall / TET_TIMED_STEPS,
-               device_ms=prof["device_ms"] / TET_TIMED_STEPS,
+        plant.step(x, u, plant.dt) for _ in range(TET_PROFILED_STEPS)],
+        wall, host_ops=False)
+    out = dict(ms=float(np.median(times)), mean_ms=float(np.mean(times)),
+               steps_timed=TET_TIMED_STEPS,
+               device_ms=prof["device_ms"] / TET_PROFILED_STEPS,
                device_busy_share=prof["device_busy_share"],
-               device_ops=prof["device_kernel_launches"] / TET_TIMED_STEPS,
+               device_ops=prof["device_kernel_launches"] / TET_PROFILED_STEPS,
                pcg_iterations=its)
-    print(f"[{tag}] {out['ms']:.3f} ms a step (host clock), "
+    print(f"[{tag}] {out['ms']:.3f} ms a step (median of {TET_TIMED_STEPS} "
+          f"on the host clock; mean {out['mean_ms']:.3f}), "
           f"{out['device_ms']:.3f} ms of device time, "
           f"{out['device_ops']:.0f} device operations, {its} PCG iterations "
           f"[{card}]")
@@ -3258,8 +3278,8 @@ def phase_tet_wide(card, dev):
     f64 (wall time, busy share from a profiled pass of each at
     TET_PROFILE_SAMPLES samples), P, the rollout's MSE and rel_err, the
     loop's tracking RMSE and plan rejects, kernel 2's launches a rollout
-    step and a query (held to its plain version on the rollout's first
-    launch and timed), the peak memory."""
+    step and a query (held to its plain version at each shape of both
+    stages, timed at each), the peak memory."""
     pts, tets = make_box_mesh(*TET_BOX, spacing=10.0)
     pts = pts - np.asarray(TET_SHIFT)
     out = {}
@@ -3294,7 +3314,11 @@ def phase_tet_wide(card, dev):
     x32 = r32.plant.step(x_load.float(), uL.float(), p.dt)
     out["f32_step_rel_err"] = scaled(x32.double(), x64)
     print(f"[tet wide] f32 step against the f64 step at the loaded state: "
-          f"{out['f32_step_rel_err']:.3e} of the state's scale [{card}]")
+          f"{out['f32_step_rel_err']:.3e} of the state's scale (limit "
+          f"{TET_F32_TOL}) [{card}]")
+    check(out["f32_step_rel_err"] <= TET_F32_TOL,
+          f"tet wide: the f32 step off the f64 step by "
+          f"{out['f32_step_rel_err']}")
     del r32
     torch.cuda.empty_cache()
     # the f64 plant carried to the CPU: the first loaded steps
@@ -3328,12 +3352,17 @@ def tet_campaign(robot, card, dev):
     torch.cuda.reset_peak_memory_stats()
     res = {k: stage(k, fns[k]) for k in ("pod_data", "pod_basis",
                                          "tpwl_data")}
+    # every launch of kernel 2 recorded, with the dictionary each stage
+    # loads (recipes.load_tpwl)
     reset_counts()
-    with recording(select_ops, "_launch", n=1, clone=1) as sel:
+    with results_of(recipes, "load_tpwl") as roll_models, recording(
+            select_ops, "_launch", clone=1) as sel:
         res["rollout_check"] = stage("rollout_check", fns["rollout_check"])
     roll = read_counts()
     reset_counts()
-    with launches_per_call(GuSTOService, "_solve") as per_query:
+    with results_of(recipes, "load_tpwl") as scp_models, recording(
+            select_ops, "_launch", clone=1) as sel_scp, launches_per_call(
+            GuSTOService, "_solve") as per_query:
         tt, z_t, sim = stage("run_scp", fns["run_scp"])
     loop = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3388,14 +3417,40 @@ def tet_campaign(robot, card, dev):
             f"{TET_PROFILE_SCP_S} s loop) [{card}]", f, 1e3 * cut_s[k],
             host_ops=False)
     out["profile_stages_s"] = cut_s
-    # kernel 2 at the rollout's shape (B=1, the dictionary's P)
-    check(len(sel) == 1 and sel[0][0].shape[0] == 1,
-          "tet campaign: no launch of tpwl_select at B=1 recorded")
+    # kernel 2 held at each shape and table of both stages (the rollout's
+    # B=1, the GuSTO queries' N states), timed at the rollout's and a
+    # query's first launch
+    check(len(roll_models) == 1 and len(scp_models) == 1
+          and len(sel) == roll["tpwl_select"]
+          and len(sel_scp) == loop["tpwl_select"],
+          "tet campaign: the recorded launches are not the counted ones")
+    held = {**hold_path_selects("tet campaign rollout", roll_models[0], sel),
+            **hold_path_selects("tet campaign loop", scp_models[0],
+                                sel_scp)}
+    out["select"] = dict(held=held, max_abs_err=max(
+        h["max_abs_err"] for h in held.values()))
     a = sel[0]
-    out["select"] = hold_select("tet campaign rollout", a[:8], a[8])
+    check(a[0].shape[0] == 1, "tet campaign: the rollout's launch is not B=1")
     out["select_row"] = select_row("tet campaign rollout",
                                    (a[0],) + tuple(a[1:8]), 0, card)
     out["select_row"]["launches"] = out["launches"]["tpwl_select"]
+    shapes = {}
+    for c in sel_scp:
+        key = (f"B={c[0].shape[0]} on "
+               f"{'A_c' if c[3] is scp_models[0].A_c else 'A_d'}")
+        shapes[key] = shapes.get(key, 0) + 1
+    out["loop_launch_shapes"] = shapes
+    print(f"[tet campaign] the loop's launches of kernel 2 by shape: {shapes}"
+          f" [{card}]")
+    # timed at the most frequent shape of more than one state (B=1 is the
+    # rollout row's, which the EKF's prediction shares)
+    key = max((k for k in shapes if not k.startswith("B=1 ")),
+              key=shapes.get)
+    a = next(c for c in sel_scp if key.startswith(f"B={c[0].shape[0]} ")
+             and (c[3] is scp_models[0].A_c) == key.endswith("A_c"))
+    out["select_row_query"] = select_row("tet campaign query",
+                                         (a[0],) + tuple(a[1:8]), a[8], card)
+    out["select_row_query"]["launches"] = loop["tpwl_select"]
     return out
 
 
@@ -3669,7 +3724,8 @@ def main():
     r = rec["pipeline"]
     kernels.append(entry("tpwl_select", "pallas_tpwl.py:24", "pipeline",
                          r["select"]["max_abs_err"], r["select_row"]))
-    # and at a step of the tet campaign's rollout check (phase 23)
+    # and at a step of the tet campaign's rollout check (phase 23; its
+    # launches held at the queries' shape too)
     r = rec["tet"]["campaign"]
     kernels.append(entry("tpwl_select", "pallas_tpwl.py:24", "tet_campaign",
                          r["select"]["max_abs_err"], r["select_row"]))
@@ -3686,7 +3742,8 @@ def main():
                           rec["gusto_stage"]["select_row"],
                           rec["campaign_loop"]["f32"]["select_row"],
                           rec["pipeline"]["select_row"],
-                          rec["tet"]["campaign"]["select_row"]]
+                          rec["tet"]["campaign"]["select_row"],
+                          rec["tet"]["campaign"]["select_row_query"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

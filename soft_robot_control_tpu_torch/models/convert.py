@@ -26,7 +26,8 @@ from soft_robot_control_tpu_torch.models.ssm import SSMModel
 from soft_robot_control_tpu_torch.models.tpwl import TPWLModel
 from soft_robot_control_tpu_torch.rom.pod import POD
 from soft_robot_control_tpu_torch.sim.fem_surrogate import FEMSurrogate
-from soft_robot_control_tpu_torch.sim.fem_tet import LEAVES, TetFEM
+from soft_robot_control_tpu_torch.sim.fem_tet import (LEAVES, TetFEM,
+                                                      _leaf_arrays)
 
 _ARRAYS = ("q", "v", "u", "A_c", "B_c", "d_c", "A_d", "B_d", "d_d", "C",
            "y_ref", "H", "z_ref")
@@ -142,8 +143,9 @@ _TET_STATIC = ("dt", "cg_iters", "cg_tol")
 def tet_fem_arrays(plant) -> dict:
     """The dict `tet_fem_from_arrays` takes, from any object with the
     TetFEM attributes (the JAX plant or this package's): its 15 leaves as
-    numpy arrays (m_node, alpha and beta 0-d) and dt, cg_iters, cg_tol."""
-    out = {k: _np(getattr(plant, k)) for k in LEAVES}
+    numpy arrays (`fem_tet._leaf_arrays`, the plant cache's) and dt,
+    cg_iters, cg_tol."""
+    out = _leaf_arrays(plant)
     out.update({k: getattr(plant, k) for k in _TET_STATIC})
     return out
 

@@ -47,7 +47,8 @@ import torch
 
 from soft_robot_control_tpu_torch.core.packing import qv2x, x2qv
 from soft_robot_control_tpu_torch.utils.device import (as_tensor,
-                                                       resolve_device)
+                                                       resolve_device,
+                                                       to_numpy)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -273,27 +274,36 @@ LEAVES = ("rest_pos", "tets", "Bm", "vol", "Ke", "m_node", "alpha", "beta",
 _SCALARS = ("m_node", "alpha", "beta")
 
 
-def _pcg(op, prec, b, max_iters: int, tol: float):
+def _pcg(op, prec, b, max_iters: int, tol: float, together=False):
     """PCG on A x = b for every lane of b (..., k) at once, with the JAX
     `while_loop`'s rule per lane: iterate while k < max_iters and ||r|| >
     tol ||b||. A stopped lane keeps its state (selected with torch.where,
     so a NaN in its temporaries never reaches it); the host reads "any lane
-    running" every CHECK_EVERY iterations. Returns (x, iterations a
-    lane)."""
+    running" every CHECK_EVERY iterations. Returns (x, iterations a lane).
+
+    together: the rule of JAX's `solve_st_multi` instead, every lane
+    iterating until the slowest one converges; the iterations are then one
+    0-d count. The denominators are clamped at the dtype's `tiny`, as there:
+    a converged lane's would underflow into 0/0 NaNs. A running lane's are
+    positive and pass unchanged."""
     z = prec(b)
     nr0 = torch.linalg.vector_norm(b, dim=-1)
+    tiny = torch.finfo(b.dtype).tiny
     x, r, p, rz = torch.zeros_like(b), b, z, (b * z).sum(-1)
-    its = torch.zeros(b.shape[:-1], dtype=torch.int64, device=b.device)
+    its = torch.zeros(() if together else b.shape[:-1], dtype=torch.int64,
+                      device=b.device)
     for k in range(max_iters):
         run = torch.linalg.vector_norm(r, dim=-1) > tol * nr0
+        if together:
+            run = run.any()
         if k % CHECK_EVERY == 0 and not bool(run.any()):
             break
         Ap = op(p)
-        a = (rz / (p * Ap).sum(-1))[..., None]
+        a = (rz / torch.clamp_min((p * Ap).sum(-1), tiny))[..., None]
         r1 = r - a * Ap
         z = prec(r1)
         rz1 = (r1 * z).sum(-1)
-        p1 = z + (rz1 / rz)[..., None] * p
+        p1 = z + (rz1 / torch.clamp_min(rz, tiny))[..., None] * p
         sel = run[..., None]
         x = torch.where(sel, x + a * p, x)
         r = torch.where(sel, r1, r)
@@ -524,30 +534,10 @@ class TetFEM:
         c_mass = (1.0 + dt * self.alpha) * self.m_node
         c_stiff = dt * self.beta + dt * dt
         B = self._t(B_cols).T * self.free_mask     # columns as rows (k, 3n)
-        Z = self._prec(B, Rn)
-        nr0 = torch.linalg.vector_norm(B, dim=-1)
-        # guards representable in the working dtype: converged columns keep
-        # iterating until the slowest one finishes, and an underflowing
-        # denominator would turn them into 0/0 NaNs
-        tiny = torch.finfo(B.dtype).tiny
-        X, Rr, P, rz = torch.zeros_like(B), B, Z, (B * Z).sum(-1)
-        its = torch.zeros((), dtype=torch.int64, device=B.device)
-        for k in range(self.cg_iters):
-            go = (torch.linalg.vector_norm(Rr, dim=-1)
-                  > self.cg_tol * nr0).any()
-            if k % CHECK_EVERY == 0 and not bool(go):
-                break
-            Ap = c_mass * P + c_stiff * self.kt_frozen_matvec(P, R)
-            a = (rz / torch.clamp_min((P * Ap).sum(-1), tiny))[:, None]
-            R1 = Rr - a * Ap
-            Z = self._prec(R1, Rn)
-            rz2 = (R1 * Z).sum(-1)
-            P1 = Z + (rz2 / torch.clamp_min(rz, tiny))[:, None] * P
-            X = torch.where(go, X + a * P, X)
-            Rr = torch.where(go, R1, Rr)
-            P = torch.where(go, P1, P)
-            rz = torch.where(go, rz2, rz)
-            its = its + go
+        X, its = _pcg(
+            lambda w: c_mass * w + c_stiff * self.kt_frozen_matvec(w, R),
+            lambda r: self._prec(r, Rn), B, self.cg_iters, self.cg_tol,
+            together=True)
         return X.T, its
 
     def reduced_discrete_dynamics(self, rom, x, u, dt, x_next_r=None):
@@ -833,18 +823,13 @@ def _save_plant(plant: TetFEM, path: str) -> None:
 
 
 def _leaf_arrays(plant) -> dict:
-    """The 15 leaves as numpy arrays: the element indices int32, m_node,
-    alpha and beta 0-d arrays of the plant's dtype."""
-    np_dt = _numpy_dtype(plant.dtype)
-    out = {}
-    for k in LEAVES:
-        a = getattr(plant, k)
-        if k in _SCALARS:
-            out[k] = np.asarray(a, dtype=np_dt)
-        elif k == "tets":
-            out[k] = a.cpu().numpy().astype(np.int32)
-        else:
-            out[k] = a.cpu().numpy()
+    """The 15 leaves of a plant (this package's or the JAX package's) as
+    numpy arrays: the element indices int32, m_node, alpha and beta 0-d
+    arrays of the float leaves' dtype."""
+    out = {k: to_numpy(getattr(plant, k)) for k in LEAVES}
+    for k in _SCALARS:
+        out[k] = np.asarray(out[k], dtype=out["rest_pos"].dtype)
+    out["tets"] = out["tets"].astype(np.int32)
     return out
 
 

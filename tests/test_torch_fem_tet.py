@@ -43,16 +43,7 @@ from soft_robot_control_tpu_torch.tasks import recipes as trec
 from soft_robot_control_tpu_torch.utils.device import to_numpy
 
 import torch_helpers  # noqa: F401  (single-threaded torch)
-
-BOX = dict(young=200.0, poisson=0.45, total_mass=0.05, alpha=0.5, beta=0.02,
-           fixed_box=(-1.0, -1.0, -1.0, 21.0, 21.0, 1.0), dt=0.01)
-
-
-def _cables():
-    return [{"waypoints": np.array([[10.0, 10.0, 38.0]]),
-             "pull_point": np.array([10.0, 10.0, 0.0])},
-            {"waypoints": np.array([[2.0, 10.0, 15.0], [2.0, 10.0, 25.0],
-                                    [2.0, 10.0, 38.0]])}]
+from tet_box import box_cables, box_plant
 
 
 def _np(a):
@@ -76,14 +67,14 @@ def mesh():
 
 
 @pytest.fixture(scope="module")
-def jplant(mesh):
-    return J.build_tet_fem(*mesh, cables=_cables(), **BOX)
+def jplant():
+    return box_plant(J)
 
 
 @pytest.fixture(scope="module")
-def built(mesh):
+def built():
     """The port's own build of the box."""
-    return P.build_tet_fem(*mesh, cables=_cables(), device="cpu", **BOX)
+    return box_plant(P, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -180,7 +171,7 @@ def test_transform_and_cables_are_the_jax_packages(mesh):
             for k in a:
                 assert np.array_equal(a[k], b[k])
     t2, _, _ = J._tet_precompute(pts, tets)
-    for c in _cables() + P.diamond_cables():
+    for c in box_cables() + P.diamond_cables():
         assert np.array_equal(
             P._cable_column(pts, t2, c["waypoints"], c.get("pull_point")),
             J._cable_column(pts, t2, c["waypoints"], c.get("pull_point")))
@@ -456,12 +447,10 @@ def test_dense_jacobians_are_the_jax_packages_and_guarded(jplant, plant):
 
 
 @pytest.fixture(scope="module")
-def settled(mesh):
+def settled():
     """Both packages' builds under gravity with a 0.2 s settle."""
-    kw = dict(cables=_cables(), gravity=(0.0, 0.0, -9810.0),
-              settle_time=0.2, **BOX)
-    return (J.build_tet_fem(*mesh, **kw),
-            P.build_tet_fem(*mesh, device="cpu", **kw))
+    kw = dict(gravity=(0.0, 0.0, -9810.0), settle_time=0.2)
+    return box_plant(J, **kw), box_plant(P, device="cpu", **kw)
 
 
 def test_gravity_settle_is_the_jax_packages(settled):

@@ -900,18 +900,10 @@ def test_tet_plant_on_the_card_matches_the_cpu(cuda_device):
     from soft_robot_control_tpu_torch.models.convert import (
         tet_fem_arrays, tet_fem_from_arrays)
     from soft_robot_control_tpu_torch.rom.pod import POD
-    from soft_robot_control_tpu_torch.sim.fem_tet import (build_tet_fem,
-                                                          make_box_mesh)
+    from soft_robot_control_tpu_torch.sim import fem_tet
+    from tet_box import box_plant
 
-    pts, tets = make_box_mesh(3, 3, 5)
-    cables = [{"waypoints": np.array([[10.0, 10.0, 38.0]]),
-               "pull_point": np.array([10.0, 10.0, 0.0])},
-              {"waypoints": np.array([[2.0, 10.0, 15.0], [2.0, 10.0, 25.0],
-                                      [2.0, 10.0, 38.0]])}]
-    card = build_tet_fem(pts, tets, young=200.0, poisson=0.45,
-                         total_mass=0.05, alpha=0.5, beta=0.02,
-                         fixed_box=(-1.0, -1.0, -1.0, 21.0, 21.0, 1.0),
-                         cables=cables, dt=0.01, device=cuda_device)
+    card = box_plant(fem_tet, device=cuda_device)
     cpu = tet_fem_from_arrays(tet_fem_arrays(card), device="cpu")
     rng = np.random.default_rng(0)
     xs = {}
