@@ -102,7 +102,8 @@ the tolerances stated below.
    iteration; kernel 2 counted and held to its plain version on the first
    call of each shape and table, and timed at the linearization's 200
    states; f32 and f64 on the card, f64 on the CPU (the campaign's loop
-   there only its first LOCP: the whole loop takes minutes);
+   there only its first LOCP: the whole loop takes minutes); the
+   campaign's runs cut to STAGE_GUSTO_SCP_ITERS SCP iterations;
 17. ROMPC at examples/diamond_baselines_campaign.py:130-137's settings on
    the campaign's linear ROM, the LinearROM as the plant, 18 ticks (4
    replans) after a 2-tick delay: kernel 1 (condensed LOCP, B=1, n=80, one
@@ -180,7 +181,32 @@ the tolerances stated below.
    a rollout step and a query, the peak memory; every launch of kernel 2
    in the rollout check and the loop recorded, the first of each shape
    (the rollout's B=1, a query's N states) held to its plain version, and
-   both timed.
+   both timed;
+24. on the same wide f64 robot with phase 23's dictionary (P=146, r=30):
+   (a) the four closed-loop recipes of tasks/recipes.py for
+   RECIPE_DURATION s on examples/diamond_baselines_campaign.py:86-95's
+   figure-8: run_rompc (N=20, N_replan=4, Qz = diag(100, 100, 0), R =
+   1e-4 I) and run_koopman (delay 1, degree 2, N=10, rollout_horizon=4,
+   16 LHS samples, absolute targets), both condensed through kernel 1
+   ('pallas'); run_ilqr (Qz as above, R = 1e-2 I, tf the loop's length,
+   iLQRConfig defaults)
+   and run_scp_open_loop (N=60, launch.py:122; the target shifted into the
+   model's coordinates) through kernel 2. Every launch of kernels 1 and 2
+   recorded, the first of each shape and table held to its plain version
+   and the most frequent timed; tracking RMSE, ms a tick and a replan (or
+   a policy), launches a replan or iteration, the open-loop replay's
+   error against its plan; (b) examples/diamond_ssm_campaign.py's --quick
+   identification: 4 decays, 4 actuated and 4 held-out runs of the tip's
+   [q; v], each one batch of 4 through the batched PCG step (its ms a step
+   and the lanes' iterations), learn_ssm (6 states, orders 3 and 3, the
+   joint fit, the ridge selected from SSM_RIDGE), both campaign gates
+   printed and held finite, save_mat and from_mat(discr_method='be'), and
+   BatchSSMMPC condensed at B=1 for SSM_MPC_WINDOWS windows on a figure-8
+   about rest (SSM_MPC_SCALE of the decays' tip excursion) in f64, kernel
+   1 held at its shape; (c) utils/timing.py's
+   block_time on the ROMPC replan's fused step against CUDA events, and
+   utils/native.py's library built on the machine (native_available, a
+   parse_matrix_txt and SnapLog round trip).
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Each timed kernel row prints the kernel's earlier time on the card
@@ -255,6 +281,7 @@ from soft_robot_control_tpu_torch.robots.robots import (  # noqa: E402
     DiamondTetRobot)
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
+from soft_robot_control_tpu_torch.scp import gusto as gusto_mod  # noqa: E402,E501
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp_condensed import (  # noqa: E402
     CondensedParams)
@@ -295,6 +322,7 @@ WRAPPERS = {"admm_batched": admm_batched, "tpwl_select": tpwl_select,
             "admm_single": admm_single}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+#                             (and float64 on its FP64 tensor cores)
 QUALITY_GATE = 0.05         # bench.py's rel tracking error gate
 ADMM_F64_TOL = 1e-9         # max abs error, kernel vs plain, f64
 ADMM_F32_TOL = 1e-4         # max abs error over max(|w|, |y|, 1), f32
@@ -408,6 +436,13 @@ STAGE_CR_SCAN_F64_TOL = 1e-8
 # f64 loop takes 4 accepted solves of 5 at N=200 (measured on an H100
 # 80GB HBM3); the default 400 and 2000 missed it in a CPU rehearsal
 STAGE_GUSTO_ADMM_ITERS = 6000
+# ... and its SCP iterations, cut in depth: GuSTO's first solve runs up to
+# scp/gusto.py:MAX_ITERS + 1 of them (5 LOCP solves on the card at full
+# depth, each of STAGE_GUSTO_ADMM_ITERS at N=200, about 23 s), which the
+# campaign's two runs patch to this many; the first LOCP, the one held to
+# the CPU, and kernel 2's launches of the rollout, the linearization and
+# the accuracy ratio come first
+STAGE_GUSTO_SCP_ITERS = 1
 # the Dubins car's f32 plan against the f64 CPU run where their solves
 # match (measured on an H100 80GB HBM3: 5.9e-5)
 STAGE_GUSTO_F32_TOL = 1e-3
@@ -493,6 +528,26 @@ TET_CAMPAIGN = dict(samples=8, t_step=0.25, pod_tol=5e-5, rom_dim=30,
 # LHS samples (and run_scp seconds: the 1 s delay, then 3 queries) of the
 # profiled pass of each stage
 TET_PROFILE_SAMPLES, TET_PROFILE_SCP_S = 1, 1.06
+# Phase 24: the closed-loop recipes on the box of the Diamond's width with
+# phase 23's dictionary, at examples/diamond_baselines_campaign.py's
+# --quick settings (seconds of closed loop, the delay), and the Diamond SSM
+# campaign's --quick identification (examples/diamond_ssm_campaign.py:
+# 110-150: 4 decays at 900 mN, hold 1.5 s, decay 2.5 s, the first 5 decay
+# samples dropped, 4 ridge candidates); BatchSSMMPC on the learned model at
+# phase 14's settings, B=1, for SSM_MPC_WINDOWS windows; block_time timed
+# UTIL_REPS times against CUDA events
+RECIPE_DURATION, RECIPE_DELAY = 3.0, 1.0
+SSM_AMP, SSM_HOLD, SSM_DECAY, SSM_SKIP = 900.0, 1.5, 2.5, 5
+SSM_RIDGE = (1e-8, 1e-6, 1e-4, 1e-2)
+SSM_MPC_WINDOWS, UTIL_REPS = 4, 20
+# block_time's wall ms may fall short of the CUDA events' ms of the same
+# call by no more than the events' resolution (about 0.5 us)
+BLOCK_TIME_SLACK_MS = 0.01
+# the MPC's figure-8 about rest, in x and y, as a fraction of the decays'
+# largest tip excursion: the campaign's 15 mm figure-8 is for the Diamond
+# mesh, and 900 mN move this stiffer stand-in's tip about 0.5 mm, beyond
+# which the learned polynomials extrapolate
+SSM_MPC_SCALE = 0.5
 
 
 def check(ok, msg):
@@ -979,34 +1034,44 @@ def cpu_agreement(tag, name, got, ref, tol):
     return agree
 
 
-def profile_device(tag, fn, wall_ms, host_ops=True):
-    """Where the device time of one call of fn() goes, by kernel: printed,
-    and returned with the device's busy share of `wall_ms`. host_ops=False
-    records the device's activity alone: the profiler's summary of a run
-    of some 100,000 host operations takes it tens of seconds."""
+def device_events(fn):
+    """{name: [device ms, count]} of the device operations of one call of
+    fn(), from a profiler pass that records the device alone, and the
+    seconds its summary took. The summary reads the profiler's raw
+    events: its key_averages() builds an event tree on the host at some
+    0.2 ms a device operation, minutes for a few passes of 300,000."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CUDA]
-    if host_ops:
-        acts.insert(0, ProfilerActivity.CPU)
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
+    t0 = time.perf_counter()
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_hidden_event():
+            op = ops.setdefault(e.name(), [0.0, 0])
+            op[0] += e.duration_ns() / 1e6
+            op[1] += 1
+    return ops, time.perf_counter() - t0
+
+
+def profile_device(tag, fn, wall_ms):
+    """Where the device time of one call of fn() goes, by kernel: printed,
+    and returned with the device's busy share of `wall_ms` and the seconds
+    the profiler's summary took."""
+    ops, summary_s = device_events(fn)
+    dev_ms = sum(ms for ms, _ in ops.values())
+    top = sorted(ops.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
     out = dict(device_ms=dev_ms, device_busy_share=dev_ms / wall_ms,
-               device_kernel_launches=sum(e.count for e in events),
-               top_device_ops=[{"name": e.key[:90],
-                                "ms": e.self_device_time_total / 1e3,
-                                "calls": e.count} for e in top])
+               device_kernel_launches=sum(n for _, n in ops.values()),
+               profiler_summary_s=summary_s,
+               top_device_ops=[{"name": name[:90], "ms": ms, "calls": n}
+                               for name, (ms, n) in top])
     print(f"[{tag}] device busy {dev_ms:.2f} ms of {wall_ms:.2f} ms per "
           f"run (share {out['device_busy_share']:.3f}) in "
-          f"{out['device_kernel_launches']} device operations; top device "
-          "time:")
+          f"{out['device_kernel_launches']} device operations (profiler "
+          f"summary {summary_s:.1f} s); top device time:")
     for e in out["top_device_ops"]:
         print(f"[{tag}]   {e['ms']:8.3f} ms  {e['calls']:5d}x  {e['name']}")
     return out
@@ -1181,22 +1246,26 @@ def hold_path_selects(tag, model, calls):
 
 
 def kernel_row(tag, wrapper, args, iters, card, reps):
-    """Time a batched ADMM kernel on the f32 arguments of a path's launch,
-    beside its plain version and its bound."""
+    """Time a batched ADMM kernel on the arguments of a path's launch (f32,
+    or f64 where the path runs in f64), beside its plain version and its
+    bound."""
     B, n, mc = args[2].shape[0], args[2].shape[1], args[3].shape[1]
+    elem = args[0].element_size()
     ms = cuda_ms(lambda: wrapper(*args, iters), reps)
     clk = clocks()
     plain_ms = cuda_ms(lambda: admm_batched_plain(*args, iters), 3)
     nbytes, flops = admm_work(B, n, mc, iters)
+    nbytes = nbytes * elem // 4
     bound_ms, bound_by = bound(nbytes, flops)
-    print(f"[{tag}] {wrapper.__name__} f32 B={B} n={n} m={mc} {iters} iters: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}) [{card}; after it SM clock, max, "
-          f"power, temperature: {clk}]")
-    earlier(wrapper.__name__, B, n, mc, iters, ms)
+    print(f"[{tag}] {wrapper.__name__} f{8 * elem} B={B} n={n} m={mc} "
+          f"{iters} iters: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}) [{card}; after it SM "
+          f"clock, max, power, temperature: {clk}]")
+    earlier(wrapper.__name__, B, n, mc, iters, ms, elem)
     return dict(kernel=wrapper.__name__, B=B, n=n, m=mc, iters=iters, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, flops=flops, clocks=clk)
+                bytes=nbytes, flops=flops, clocks=clk,
+                dtype=str(args[0].dtype)[6:])
 
 
 def rel_diff(got, ref):
@@ -1701,17 +1770,9 @@ def ops_per_call(fn_of, n_lo, n_hi, n):
 
 def profile_quiet(fn):
     """(device operations, device ms) of one call of fn()."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    return (sum(e.count for e in events),
-            sum(e.self_device_time_total for e in events) / 1e3)
+    ops, _ = device_events(fn)
+    return (sum(n for _, n in ops.values()),
+            sum(ms for ms, _ in ops.values()))
 
 
 def host_ms(fn, runs):
@@ -1875,7 +1936,7 @@ def phase_stage_gusto(model64, model, card, dev):
     for name, mdl, dtype in (("f32", model, torch.float32),
                              ("f64", model64, torch.float64)):
         with recording(select_ops, "_launch", clone=1) as sel, \
-                first_locp() as first:
+                first_locp() as first, scp_iterations(STAGE_GUSTO_SCP_ITERS):
             runs[name] = stage_gusto_run(f"gusto stage diamond {name}",
                                          diamond(mdl, dtype), N + 1)
         out[f"select {name}"] = hold_path_selects(
@@ -1916,6 +1977,18 @@ def phase_stage_gusto(model64, model, card, dev):
     out["launches"] = runs["f32"][3]
     out["launches_f64"] = runs["f64"][3]
     return out
+
+
+@contextlib.contextmanager
+def scp_iterations(n):
+    """Within the block, GuSTO's first solve runs at most n SCP
+    iterations (scp/gusto.py:MAX_ITERS, which its construction reads)."""
+    real = gusto_mod.MAX_ITERS
+    gusto_mod.MAX_ITERS = n - 1
+    try:
+        yield
+    finally:
+        gusto_mod.MAX_ITERS = real
 
 
 @contextlib.contextmanager
@@ -3149,7 +3222,7 @@ def tet_step_time(tag, plant, x, u, card):
     wall = float(np.median(times)) * TET_PROFILED_STEPS
     prof = profile_device(f"{tag} [{card}]", lambda: [
         plant.step(x, u, plant.dt) for _ in range(TET_PROFILED_STEPS)],
-        wall, host_ops=False)
+        wall)
     out = dict(ms=float(np.median(times)), mean_ms=float(np.mean(times)),
                steps_timed=TET_TIMED_STEPS,
                device_ms=prof["device_ms"] / TET_PROFILED_STEPS,
@@ -3337,7 +3410,7 @@ def phase_tet_wide(card, dev):
           f"{time.perf_counter() - t0:.1f} s [{card}]")
     check(worst <= TET_WIDE_TOL, f"tet wide: steps off the CPU by {worst}")
     out["campaign"] = tet_campaign(robot, card, dev)
-    return out
+    return out, robot
 
 
 def tet_campaign(robot, card, dev):
@@ -3414,8 +3487,7 @@ def tet_campaign(robot, card, dev):
         stage_cut(k, f)
         out["profile"][k] = profile_device(
             f"tet campaign {k} (cut: {TET_PROFILE_SAMPLES} samples, "
-            f"{TET_PROFILE_SCP_S} s loop) [{card}]", f, 1e3 * cut_s[k],
-            host_ops=False)
+            f"{TET_PROFILE_SCP_S} s loop) [{card}]", f, 1e3 * cut_s[k])
     out["profile_stages_s"] = cut_s
     # kernel 2 held at each shape and table of both stages (the rollout's
     # B=1, the GuSTO queries' N states), timed at the rollout's and a
@@ -3454,8 +3526,479 @@ def tet_campaign(robot, card, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the four closed-loop recipes, native SSM identification and the
+# utilities on the box of the Diamond's width, f64
+
+
+@contextlib.contextmanager
+def class_ticks(cls):
+    """Within the block, each call of cls.evaluate (a controller's tick)
+    timed on the host clock with the device synchronized on both sides,
+    whether it replanned (its solve_times grew) and kernel 2's launches
+    inside it; the controller instance of the first call is kept under
+    "ctrl". Yields the list of ticks."""
+    had = "evaluate" in cls.__dict__
+    real = cls.evaluate
+    ticks = []
+
+    def evaluate(self, *a):
+        n0 = len(getattr(self, "solve_times", ()))
+        k0 = tpwl_select.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = real(self, *a)
+        torch.cuda.synchronize()
+        ticks.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                          replan=len(getattr(self, "solve_times", ())) > n0,
+                          selects=tpwl_select.launches - k0, ctrl=self))
+        return u
+
+    cls.evaluate = evaluate
+    try:
+        yield ticks
+    finally:
+        if had:
+            cls.evaluate = real
+        else:
+            del cls.evaluate
+
+
+def baseline_figure8(z_eq, dt, duration):
+    """examples/diamond_baselines_campaign.py:86-95's figure-8 about z_eq
+    (amplitudes 15 and 7.5 mm, period 10 s) over duration + 4 s: (t, z)."""
+    tt = np.arange(0, duration + 4.0, dt)
+    th = 2 * np.pi * tt / 10.0
+    z = np.tile(np.asarray(z_eq, float), (len(tt), 1))
+    z[:, 0] += -15.0 * np.sin(th)
+    z[:, 1] += 7.5 * np.sin(2 * th)
+    return tt, z
+
+
+def baseline_score(sim, tt, z_t):
+    """The baselines campaign's score (:99-111): RMS of the x-y distance to
+    the target delayed by RECIPE_DELAY, from t = 2 s on."""
+    z, t = np.asarray(sim["z"]), np.asarray(sim["t"])
+    zt = np.stack([np.interp(t - RECIPE_DELAY, tt, z_t[:, j])
+                   for j in range(z_t.shape[1])], axis=1)
+    act = t >= 2.0
+    return float(np.sqrt(np.mean(np.sum(
+        (z[act][:, :2] - zt[act][:, :2]) ** 2, axis=1))))
+
+
+def admm_shapes(calls):
+    """The recorded launches of kernel 1 by (B, n, m, iterations, dtype):
+    {key: (count, first launch's arguments)}."""
+    out = {}
+    for a in calls:
+        key = (a[2].shape[0], a[2].shape[1], a[3].shape[1], a[8],
+               str(a[0].dtype)[6:])
+        n, first = out.get(key, (0, a))
+        out[key] = (n + 1, first)
+    return out
+
+
+def hold_recipe_admm(tag, calls, card):
+    """Kernel 1's recorded launches on a recipe's path: the first of each
+    shape held to its plain version (hold_admm) and timed; the most
+    frequent shape's row returned with the held shapes."""
+    shapes = admm_shapes(calls)
+    check(bool(shapes), f"{tag}: no launch of admm_batched recorded")
+    held = {}
+    for key, (n, a) in shapes.items():
+        t = f"{tag} B={key[0]} n={key[1]} m={key[2]} {key[3]} iters"
+        held[t] = hold_admm(t, a[:8], a[8])
+        held[t]["launches"] = n
+    key = max(shapes, key=lambda k: shapes[k][0])
+    row = kernel_row(tag, admm_batched, shapes[key][1][:8], key[3], card,
+                     50)
+    row["launches"] = len(calls)
+    return dict(held=held, max_abs_err=max(h["max_abs_err"]
+                                           for h in held.values()),
+                row=row)
+
+
+def recipe_lti(name, run, card):
+    """A recipe over LinearMPCService (ROMPC or Koopman MPC) through
+    run(): every launch of kernel 1 recorded, held and timed; ms a tick
+    and a replan; launches a replan; the loop's tracking RMSE against the
+    delayed target."""
+    from soft_robot_control_tpu_torch.control.koopman import KoopmanMPC
+
+    cls = ROMPC if name == "rompc" else KoopmanMPC
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(batch_mpc, "admm_batched") as qp, class_ticks(
+            cls) as ticks, counting(LinearMPCService, "_solve_host") as fb:
+        tt, z_t, sim = run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rep = [t for t in ticks if t["replan"]]
+    n_solves = len(sim["info"]["solve_times"])
+    out = dict(wall_s=wall, launches=counts, replans=len(rep),
+               ticks=len(ticks), tracking_rmse_mm=baseline_score(
+                   sim, tt, z_t),
+               tick_ms=float(np.median([t["ms"] for t in ticks])),
+               replan_ms=float(np.median([t["ms"] for t in rep])),
+               host_fallbacks=len(fb),
+               launches_a_replan=counts["admm_batched"] / max(n_solves, 1))
+    print(f"[recipe {name}] {len(ticks)} ticks, {n_solves} replans, "
+          f"{len(fb)} host-adapter solves; {out['tick_ms']:.2f} ms a tick, "
+          f"{out['replan_ms']:.2f} ms a replan (host clock, medians); "
+          f"kernel 1 {out['launches_a_replan']:.2f} launches a replan, "
+          f"launches {counts}; tracking RMSE {out['tracking_rmse_mm']:.4f} "
+          f"mm; {wall:.1f} s [{card}]")
+    check(np.isfinite(sim["z"]).all() and np.isfinite(sim["u"]).all()
+          and n_solves > 0 and counts["admm_batched"] > 0
+          and all(counts[k] == 0 for k in KERNELS if k != "admm_batched")
+          and len(qp) == counts["admm_batched"],
+          f"recipe {name}: launches {counts}, {n_solves} replans")
+    out["admm"] = hold_recipe_admm(f"recipe {name}", qp, card)
+    out["ctrl"] = ticks[0]["ctrl"]
+    return out
+
+
+def recipe_tpwl(name, run, card):
+    """A recipe on the TPWL dictionary (iLQR or the open-loop GuSTO)
+    through run(): every launch of kernel 2 recorded and the first of each
+    shape and table held (hold_path_selects), timed at its most frequent
+    shape; the run's result and kernel 2's launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with results_of(recipes, "load_tpwl") as models, recording(
+            select_ops, "_launch", clone=1) as sel:
+        res = run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["tpwl_select"] > 0 and len(sel) == counts["tpwl_select"]
+          and all(counts[k] == 0 for k in KERNELS if k != "tpwl_select")
+          and len(models) == 1, f"recipe {name}: launches {counts}")
+    held = hold_path_selects(f"recipe {name}", models[0], sel)
+    shapes = {}
+    for c in sel:
+        shapes[c[0].shape[0]] = shapes.get(c[0].shape[0], 0) + 1
+    B = max(shapes, key=shapes.get)
+    a = next(c for c in sel if c[0].shape[0] == B)
+    row = select_row(f"recipe {name}", (a[0],) + tuple(a[1:8]), a[8], card)
+    row["launches"] = counts["tpwl_select"]
+    print(f"[recipe {name}] kernel 2 launches by batch {shapes}; {wall:.1f}"
+          f" s [{card}]")
+    return res, dict(wall_s=wall, launches=counts, launch_shapes=shapes,
+                     select=dict(held=held, max_abs_err=max(
+                         h["max_abs_err"] for h in held.values())),
+                     select_row=row)
+
+
+def phase_recipes(robot, card, dev):
+    """Phase 24(a): run_rompc, run_koopman, run_ilqr and run_scp_open_loop
+    on the wide f64 robot with phase 23's dictionary (TET_DIR), at the
+    baselines campaign's --quick settings (RECIPE_DURATION s on its
+    figure-8, RECIPE_DELAY s delay); see the module docstring."""
+    from soft_robot_control_tpu_torch.control.koopman import KoopmanMPC
+    from soft_robot_control_tpu_torch.lqr.ilqr import iLQR
+    from soft_robot_control_tpu_torch.scp.locp import LOCP
+
+    d, dt = TET_DIR, robot.dt
+    Hf = robot.get_output_model()
+    z_eq = Hf @ to_numpy(robot.plant.x_rest())
+    tt, z_t = baseline_figure8(z_eq, dt, RECIPE_DURATION)
+    qz = np.diag([100.0, 100.0, 0.0])
+    lti = dict(sim_duration=RECIPE_DURATION, delay=RECIPE_DELAY,
+               locp_backend="condensed", qp_backend="pallas")
+    out = {}
+    out["rompc"] = recipe_lti("rompc", lambda: (tt, z_t, recipes.run_rompc(
+        robot, d, tt, z_t, N=20, N_replan=4, Qz=qz, R=1e-4 * np.eye(4),
+        save_prefix="rompc", **lti)), card)
+    out["koopman"] = recipe_lti("koopman", lambda: (
+        tt, z_t, recipes.run_koopman(
+            robot, d, tt, z_t, delay_embed=1, degree=2, N=10,
+            rollout_horizon=4, nbr_samples=16, absolute_targets=True,
+            save_prefix="koopman", **lti)), card)
+
+    with class_ticks(ilqr) as ticks, counting(
+            ilqr, "compute_policy") as pol, counting(
+            iLQR, "_run_backward") as iters:
+        sim, rec = recipe_tpwl("ilqr", lambda: recipes.run_ilqr(
+            robot, d, tt, z_t, Qz=qz, R=1e-2 * np.eye(4),
+            tf=RECIPE_DURATION, sim_duration=RECIPE_DURATION,
+            delay=RECIPE_DELAY), card)
+    check(len(pol) == 1 and len(iters) > 0 and np.isfinite(sim["z"]).all(),
+          f"recipe ilqr: {len(pol)} policies, {len(iters)} iterations")
+    rec.update(tracking_rmse_mm=baseline_score(sim, tt, z_t),
+               policy_ms=1e3 * pol[0][1], iterations=len(iters),
+               tick_ms=float(np.median([t["ms"] for t in ticks])),
+               launches_an_iteration=rec["launches"]["tpwl_select"]
+               / len(iters))
+    print(f"[recipe ilqr] policy over {RECIPE_DURATION:g} s: "
+          f"{rec['policy_ms']:.1f} ms, {len(iters)} iLQR iterations, kernel "
+          f"2 {rec['launches_an_iteration']:.1f} launches an iteration; "
+          f"{rec['tick_ms']:.2f} ms a tick (median of {len(ticks)}); "
+          f"tracking RMSE {rec['tracking_rmse_mm']:.4f} mm [{card}]")
+    out["ilqr"] = rec
+
+    # the recipe hands z to GuSTO as it is, in the model's coordinates
+    # (about the reference, z = H x): the target goes in shifted
+    model = recipes.load_tpwl(robot, d)
+    z_ref = to_numpy(model.z_ref)
+    with counting(LOCP, "solve") as solves:
+        res, rec = recipe_tpwl("open_loop", lambda: recipes.run_scp_open_loop(
+            robot, d, tt, z_t - z_ref, N=60), card)
+    topt, zopt, zr = res["topt"], res["zopt"], res["z_replay"] - z_ref
+    t_r = dt * np.arange(len(zr))
+    z_plan = np.stack([np.interp(t_r, topt, zopt[:, j]) for j in range(2)],
+                      axis=1)
+    z_goal = np.stack([np.interp(t_r, tt, z_t[:, j] - z_ref[j])
+                       for j in range(2)], axis=1)
+    rms = lambda e: float(np.sqrt(np.mean(np.sum(e ** 2, axis=1))))
+    rec.update(scp_iterations=len(solves), replay_vs_plan_rms_mm=rms(
+        zr[:, :2] - z_plan), replay_vs_target_rms_mm=rms(zr[:, :2] - z_goal),
+        locp_ms=float(1e3 * np.median([s for _, s in solves])),
+        launches_an_iteration=rec["launches"]["tpwl_select"] / len(solves))
+    print(f"[recipe open loop] GuSTO N=60: {len(solves)} LOCP solves "
+          f"({rec['locp_ms']:.1f} ms median), kernel 2 "
+          f"{rec['launches_an_iteration']:.1f} launches an SCP iteration; "
+          f"the replay of {len(zr) - 1} steps against the plan: RMS "
+          f"{rec['replay_vs_plan_rms_mm']:.4f} mm, against the target "
+          f"{rec['replay_vs_target_rms_mm']:.4f} mm [{card}]")
+    check(np.isfinite(zr).all() and np.isfinite(zopt).all(),
+          "recipe open loop: non-finite plan or replay")
+    out["open_loop"] = rec
+    return out
+
+
+def ssm_data_inputs(dt):
+    """examples/diamond_ssm_campaign.py's --quick data: the 4 decay levels
+    (each cable alone at SSM_AMP mN), the 4 actuated sines of :134-150
+    and the 4 held-out sines of :197-202, each sequence T_act steps."""
+    amp = SSM_AMP
+    levels = [amp * np.eye(4)[i] for i in range(4)]
+    T_act = int(round((SSM_HOLD + SSM_DECAY) / dt))
+    tt = dt * np.arange(T_act)
+    rng = np.random.default_rng(0)
+    acts = []
+    for k in range(4):
+        u = np.zeros((T_act, 4))
+        u[:, k] = 0.5 * amp * (1 + np.sin(2 * np.pi * (0.4 + 0.2 * k) * tt))
+        acts.append(u)
+    tests = [0.4 * amp * (1 + np.sin(2 * np.pi * 0.45 * tt[:, None]
+                                     + rng.uniform(0, 2 * np.pi, 4)[None]))
+             for _ in range(4)]
+    return levels, acts, tests
+
+
+def tip_qv_output(num_nodes, node):
+    """examples/diamond_ssm_campaign.py:33-41: z = [q_tip; v_tip] of a
+    state x = [v; q]."""
+    C = np.zeros((6, 6 * num_nodes))
+    for k in range(3):
+        C[k, 3 * num_nodes + 3 * node + k] = 1.0
+        C[3 + k, 3 * node + k] = 1.0
+    return C
+
+
+def phase_ssm_learned(robot, card, dev):
+    """Phase 24(b): the Diamond SSM campaign's --quick identification on
+    the wide f64 robot (decays, actuated and held-out runs each one batch
+    of 4 through the batched PCG step), learn_ssm, both campaign gates
+    (printed; only finiteness checked: a stand-in mesh), save_mat and
+    from_mat(discr_method='be'), then BatchSSMMPC condensed at B=1 for
+    SSM_MPC_WINDOWS windows on a figure-8 about rest, kernel 1 held."""
+    from soft_robot_control_tpu_torch.models import ssm_learn
+    from soft_robot_control_tpu_torch.tasks.sysid_export import (
+        collect_actuated_trajectories, collect_decay_trajectories)
+
+    p, dt = robot.plant, robot.dt
+    tip = robot.default_output_nodes[0]
+    Hf = tip_qv_output(p.n_nodes, tip)
+    levels, acts, tests = ssm_data_inputs(dt)
+    out = {}
+    stage = stage_runner(out.setdefault("stages_s", {}))
+    decays = stage("decays", lambda: collect_decay_trajectories(
+        p, Hf, levels, hold_time=SSM_HOLD, decay_time=SSM_DECAY, dt=dt))
+    acts_data = stage("actuated", lambda: collect_actuated_trajectories(
+        p, Hf, acts, dt=dt))
+    n_steps = len(acts[0])
+    out["batched_step_ms"] = 1e3 * out["stages_s"]["actuated"] / n_steps
+    z_eq = Hf @ to_numpy(p.x_rest())
+    out["decay_excursion_mm"] = float(max(
+        np.abs(z[:, :3] - z_eq[:3]).max() for _, z in decays))
+    # the batched step's PCG iterations of each lane, at the loaded mid
+    # point of the actuated runs
+    xs = p.x_rest()[None].repeat(4, 1)
+    u_mid = torch.as_tensor(np.stack([a[n_steps // 2] for a in acts]),
+                            dtype=p.dtype, device=dev)
+    for _ in range(20):
+        xs = p.step(xs, u_mid, p.dt)
+    _, k_lane = p.step_iters(xs, u_mid, p.dt)
+    out["pcg_iterations_by_lane"] = [int(v) for v in to_numpy(k_lane)]
+    print(f"[ssm learned] {p.n_nodes} nodes, tip node {tip}: decays "
+          f"{out['stages_s']['decays']:.2f} s, actuated runs "
+          f"{out['stages_s']['actuated']:.2f} s ({len(acts)} lanes x "
+          f"{n_steps} steps: {out['batched_step_ms']:.3f} ms a batched step"
+          f"); PCG iterations of each lane at a loaded step "
+          f"{out['pcg_iterations_by_lane']}; the tip's largest excursion "
+          f"in the decays {out['decay_excursion_mm']:.4f} mm [{card}]")
+    with recording(ssm_learn, "_ridge_fit") as fits:
+        model = stage("fit", lambda: ssm_learn.learn_ssm(
+            [z[SSM_SKIP:] for _, z in decays], dt, state_dim=6,
+            SSM_order=3, ROM_order=3, n_delay=0, z_ref=z_eq,
+            actuated_trajs=[z for z, _ in acts_data],
+            input_trajs=[u for _, u in acts_data], ridge=list(SSM_RIDGE),
+            joint_fit=True, device=dev))
+    out["selected_ridge"] = float(fits[-1][2])
+    # gate 1: an unforced decay from 3 mm contracts
+    x0 = model.observed_to_reduced(torch.as_tensor(
+        np.concatenate([3.0 * np.ones(3), np.zeros(3)]), dtype=model.dtype,
+        device=dev))
+    xs_stab, _ = model.rollout(x0, torch.zeros((200, 4), dtype=model.dtype,
+                                               device=dev), dt)
+    n0, nT = (float(torch.linalg.norm(xs_stab[i])) for i in (0, -1))
+    # gate 2: the held-out actuated runs' tip prediction
+    held = stage("held_out", lambda: collect_actuated_trajectories(
+        p, Hf, tests, dt=dt))
+    z_ref = to_numpy(model.z_ref)
+    rels = []
+    for z_true, u_test in held:
+        xr0 = model.observed_to_reduced(torch.as_tensor(
+            z_true[0] - z_ref, dtype=model.dtype, device=dev))
+        xr, _ = model.rollout(xr0, torch.as_tensor(
+            u_test[:-1], dtype=model.dtype, device=dev), dt)
+        z_pred = to_numpy(model.reduced_to_observed(xr)) + z_ref
+        err = np.linalg.norm(z_pred[:, :3] - z_true[:, :3], axis=1)
+        motion = np.linalg.norm(z_true[:, :3] - z_true[0, :3], axis=1)
+        rels.append(float(np.sqrt(np.mean(err ** 2))
+                          / max(motion.max(), 1e-9)))
+    lin = np.linalg.eigvals(to_numpy(model.r_coeff)[:, :model.state_dim])
+    out["linear_part_max_real_eig"] = float(lin.real.max())
+    out.update(decay_norm_0=n0, decay_norm_200=nT,
+               stable=bool(np.isfinite(nT) and nT < n0),
+               held_out_rel_rms=float(np.mean(rels)), held_out_rels=rels)
+    print(f"[ssm learned] fit {out['stages_s']['fit']:.2f} s (host f64), "
+          f"ridge selected {out['selected_ridge']:g} of {SSM_RIDGE}; gate 1 "
+          f"(the campaign's): |x| {n0:.4f} -> {nT:.4f} over 200 unforced "
+          f"steps ({'contracts' if out['stable'] else 'does not contract'}"
+          "); "
+          f"gate 2: held-out tip rel RMS {out['held_out_rel_rms']:.4f} "
+          f"({', '.join(f'{r:.3f}' for r in rels)}; the campaign accepts "
+          f"< 0.5); the linear part's largest real eigenvalue "
+          f"{out['linear_part_max_real_eig']:.4g} 1/s [{card}]")
+    # the gates are the campaign's acceptance on the Diamond mesh; on this
+    # stand-in mesh they are read, and the fit is held finite
+    check(all(np.isfinite(to_numpy(getattr(model, k))).all()
+              for k in ("w_coeff", "v_coeff", "r_coeff", "B_r", "rd_coeff",
+                        "Bd_r")), "ssm learned: a non-finite fit")
+    # the .mat round trip, then the batched SSM MPC through kernel 1
+    path = os.path.join(TET_DIR, "learned_SSM_model.mat")
+    ssm_learn.save_mat(model, path)
+    mdl = from_mat(path, None, discrete=False, discr_method="be",
+                   device=dev)
+    check(all(torch.equal(getattr(mdl, k), getattr(model, k))
+              for k in ("w_coeff", "r_coeff", "B_r", "z_ref")),
+          "ssm learned: the .mat round trip changed the model")
+    T = SSM_MPC_WINDOWS * SSM_N_REPLAN + SSM_N + 1
+    th = 2 * np.pi * SSM_DT * np.arange(T) / 10.0
+    amp = SSM_MPC_SCALE * out["decay_excursion_mm"]
+    zz = np.zeros((T, 6))
+    zz[:, 0], zz[:, 1] = -amp * np.sin(th), amp * np.sin(2 * th)
+    zt = window_targets(zz, SSM_MPC_WINDOWS, SSM_N_REPLAN, SSM_N)[None]
+    mpc = make_ssm_mpc(mdl, torch.float64, dev, "condensed")
+    run = mpc.build_fused(SSM_MPC_WINDOWS)
+    x0 = np.zeros((1, mdl.state_dim))
+    reset_counts()
+    with recording(batch_mpc, "admm_batched") as qp:
+        logs = run(x0, zt)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in KERNELS}
+    want["admm_batched"] = SSM_MPC_WINDOWS
+    check(counts == want, f"ssm learned mpc: launches {counts}")
+    out["launches"] = counts
+    out["mpc_logs_finite"] = bool(torch.isfinite(logs["z"]).all()
+                                  and torch.isfinite(logs["u"]).all())
+    check(out["mpc_logs_finite"], "ssm learned mpc: non-finite logs")
+    ms = host_ms(lambda: run(x0, zt), 5)
+    out["mpc_run_ms"] = float(np.median(ms))
+    out["admm"] = hold_recipe_admm("ssm learned mpc", qp, card)
+    print(f"[ssm learned] BatchSSMMPC condensed B=1, {SSM_MPC_WINDOWS} "
+          f"windows: launches {counts}, {out['mpc_run_ms']:.2f} ms a run "
+          f"(host clock, median of 5), logs finite: "
+          f"{out['mpc_logs_finite']} [{card}]")
+    return out
+
+
+def phase_utils(rompc_ctrl, card):
+    """Phase 24(c): block_time against CUDA events on the ROMPC recipe's
+    fused replan (its service's compiled step, no host read), and the
+    native IO library built on this machine: a SnapLog and
+    parse_matrix_txt round trip."""
+    from soft_robot_control_tpu_torch.utils import native
+    from soft_robot_control_tpu_torch.utils.timing import block_time
+
+    svc = rompc_ctrl.MPC
+    spec = svc.locp.spec
+    x0 = np.zeros(spec.n_x)
+    args = (torch.as_tensor(1.0 - svc._t_off, dtype=spec.dtype,
+                            device=svc.device),
+            torch.as_tensor(x0, dtype=spec.dtype, device=svc.device),
+            svc._w, svc._y)
+    svc._fused_fn(*args)
+    bt, ev, done = [], [], []
+    for _ in range(UTIL_REPS):
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def fn(s=s, e=e):
+            s.record()
+            r = svc._fused_fn(*args)
+            e.record()
+            return r
+
+        bt.append(1e3 * block_time(fn))
+        done.append(e.query())
+        torch.cuda.synchronize()
+        ev.append(s.elapsed_time(e))
+    out = dict(block_time_ms=float(np.median(bt)),
+               cuda_events_ms=float(np.median(ev)),
+               block_time_runs_ms=bt, cuda_events_runs_ms=ev)
+    print(f"[utils] block_time of the ROMPC replan's fused step: "
+          f"{out['block_time_ms']:.3f} ms, CUDA events of the same calls "
+          f"{out['cuda_events_ms']:.3f} ms (medians of {UTIL_REPS}) "
+          f"[{card}]")
+    # each call: its end event has completed when block_time returns, and
+    # block_time spans the events (less the clocks' resolution)
+    check(all(done) and all(b >= v - BLOCK_TIME_SLACK_MS
+                            for b, v in zip(bt, ev)),
+          "utils: block_time returned before the card finished")
+    out["native_available"] = native.native_available()
+    check(out["native_available"], "utils: the native IO library did not "
+          "build")
+    rng = np.random.default_rng(24)
+    M, recs = rng.normal(size=(40, 37)), rng.normal(size=(123, 9))
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "m.txt")
+        with open(mpath, "w") as f:
+            f.write("# header\n")
+            for row in M:
+                f.write("[" + " ".join(f"{v:.17g}" for v in row) + "]\n")
+        parsed = native.parse_matrix_txt(mpath, 40, 37, skip_lines=1)
+        lpath = os.path.join(tmp, "log.snap")
+        with native.SnapLog(lpath, 9) as log:
+            log.append(recs[0])
+            log.append_many(recs[1:])
+        back = native.read_snaplog(lpath)
+    out.update(library=native.library_path(),
+               matrix_equal=bool(np.array_equal(parsed, M)),
+               snaplog_equal=bool(np.array_equal(back, recs)))
+    print(f"[utils] native IO library {os.path.relpath(out['library'], HERE)}"
+          f": parse_matrix_txt exact {out['matrix_equal']}, SnapLog round "
+          f"trip exact {out['snaplog_equal']} [{card}]")
+    check(out["matrix_equal"] and out["snaplog_equal"],
+          "utils: the native IO round trip differs")
+    return out
+
+
 class PhaseClock:
-    """Wall seconds of each group of phases, printed as each ends, so that
+    """Wall seconds of each phase (or group of short phases), printed as each ends, so that
     a run's time against its limit can be read by phase."""
 
     def __init__(self):
@@ -3576,39 +4119,58 @@ def main():
             f"ssm diamond {form}", "diamond", form, SSM_B_DIAMOND, card, dev,
             False)
 
-    phase_clock.start("15-18")
+    phase_clock.start("15")
     # 15.-18. the stage LOCP (bench.py section 4b), GuSTO's stage backend
     # at N=200, ROMPC and Koopman MPC
     rec["stage_locp"] = phase_stage_locp(model64, card, dev)
+    phase_clock.start("16")
     rec["gusto_stage"] = phase_stage_gusto(model64, model, card, dev)
+    phase_clock.start("17")
     rec["rompc"] = phase_rompc(Cf, Hf, card, dev)
+    phase_clock.start("18")
     rec["koopman"] = phase_koopman(model64, card, dev)
     torch.cuda.empty_cache()
 
-    phase_clock.start("19-21")
+    phase_clock.start("19")
     # 19.-21. the host orchestration layer: the golden chain loop, the
     # campaign's closed loop, the other policies
     rec["golden_chain"] = phase_golden(card, dev)
+    phase_clock.start("20")
     model_cpu = from_tpwl_dict(
         ARTIFACT, params={"dist_weights": {"q": 10.0, "v": 1.0}}, Cf=Cf,
         Hf=Hf, discr_method="be", device="cpu").to(dtype=torch.float64)
     rec["campaign_loop"] = phase_campaign(model64, model, model_cpu, Cf, Hf,
                                           card, dev)
+    phase_clock.start("21")
     rec["policies"] = phase_policies(model64, model_cpu, Cf, Hf, card, dev)
     torch.cuda.empty_cache()
 
-    phase_clock.start("22")
+    phase_clock.start("22a")
     # 22. the Diamond pipeline: examples/diamond_pipeline.py's settings
     # against the CPU, then the offline half at the mesh's width
     rec["pipeline_small"] = phase_pipeline_small(card, dev)
+    phase_clock.start("22b")
     rec["pipeline"] = phase_pipeline_wide(card, dev)
     torch.cuda.empty_cache()
 
-    phase_clock.start("23")
+    phase_clock.start("23a")
     # 23. the tet-FEM plant: the box against the CPU, then the Diamond's
     # width and the Diamond tet campaign's --quick stages
     rec["tet_small"] = phase_tet_small(card, dev)
-    rec["tet"] = phase_tet_wide(card, dev)
+    phase_clock.start("23b")
+    rec["tet"], tet_robot = phase_tet_wide(card, dev)
+    torch.cuda.empty_cache()
+
+    phase_clock.start("24a")
+    # 24. the closed-loop recipes, native SSM identification and the
+    # utilities on the same robot, with phase 23's dictionary
+    rec["recipes"] = phase_recipes(tet_robot, card, dev)
+    phase_clock.start("24b")
+    rec["ssm_learned"] = phase_ssm_learned(tet_robot, card, dev)
+    phase_clock.start("24c")
+    rec["utils"] = phase_utils(rec["recipes"]["rompc"].pop("ctrl"), card)
+    rec["recipes"]["koopman"].pop("ctrl")
+    del tet_robot
     torch.cuda.empty_cache()
 
     phase_clock.start(None)
@@ -3645,7 +4207,10 @@ def main():
                 for k, v in rec["policies"].items()},
              "pipeline_small": rec["pipeline_small"]["launches"],
              "pipeline": rec["pipeline"]["launches"],
-             "tet_campaign": rec["tet"]["campaign"]["launches"]}
+             "tet_campaign": rec["tet"]["campaign"]["launches"],
+             **{f"recipe_{k}": v["launches"]
+                for k, v in rec["recipes"].items()},
+             "ssm_learned": rec["ssm_learned"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -3729,6 +4294,18 @@ def main():
     r = rec["tet"]["campaign"]
     kernels.append(entry("tpwl_select", "pallas_tpwl.py:24", "tet_campaign",
                          r["select"]["max_abs_err"], r["select_row"]))
+    # phase 24: kernel 1 on the ROMPC and Koopman recipes and the learned
+    # SSM's MPC, kernel 2 on the iLQR and open-loop GuSTO recipes (f64)
+    for path, r in (("recipe_rompc", rec["recipes"]["rompc"]["admm"]),
+                    ("recipe_koopman", rec["recipes"]["koopman"]["admm"]),
+                    ("ssm_learned", rec["ssm_learned"]["admm"])):
+        kernels.append(entry("admm_batched", "pallas_admm.py:132", path,
+                             r["max_abs_err"], r["row"]))
+    for name in ("ilqr", "open_loop"):
+        r = rec["recipes"][name]
+        kernels.append(entry("tpwl_select", "pallas_tpwl.py:24",
+                             f"recipe_{name}", r["select"]["max_abs_err"],
+                             r["select_row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -3743,7 +4320,12 @@ def main():
                           rec["campaign_loop"]["f32"]["select_row"],
                           rec["pipeline"]["select_row"],
                           rec["tet"]["campaign"]["select_row"],
-                          rec["tet"]["campaign"]["select_row_query"]]
+                          rec["tet"]["campaign"]["select_row_query"],
+                          rec["recipes"]["rompc"]["admm"]["row"],
+                          rec["recipes"]["koopman"]["admm"]["row"],
+                          rec["ssm_learned"]["admm"]["row"],
+                          rec["recipes"]["ilqr"]["select_row"],
+                          rec["recipes"]["open_loop"]["select_row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

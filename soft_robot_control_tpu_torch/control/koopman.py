@@ -117,7 +117,10 @@ class KoopmanMPC:
 
     def evaluate(self, sim_time, y, x, u_prev):
         """The command at sim_time from the measurement y (the model's
-        output coordinates) and the previous command."""
+        output coordinates; an array, or a tensor on any device, as the
+        closed loop hands it) and the previous command."""
+        # the delay buffer is host numpy: one copy of the measurement
+        y = to_numpy(y)
         sim_time = round(sim_time, 4)
         self.observer.update(None, y, None)
         if self.Y is not None:

@@ -39,17 +39,28 @@ def fe(A, B, d, dt):
     return _eye_like(A) + dt * A, dt * B, dt * d
 
 
+def _inv(M):
+    """M^-1 without a check: a singular M gives non-finite entries, as in
+    the JAX package, and the card is not waited for."""
+    return torch.linalg.inv_ex(M).inverse
+
+
+def _solve(A, Y):
+    """A^-1 Y without a check, as _inv."""
+    return torch.linalg.solve_ex(A, Y).result
+
+
 def be(A, B, d, dt):
     I = _eye_like(A)
-    Ad = torch.linalg.inv(I - dt * A)
-    sep = torch.linalg.solve(A, Ad - I)
+    Ad = _inv(I - dt * A)
+    sep = _solve(A, Ad - I)
     return Ad, sep @ B, (sep @ d[..., None])[..., 0]
 
 
 def bil(A, B, d, dt):
     I = _eye_like(A)
-    Ad = (I + 0.5 * dt * A) @ torch.linalg.inv(I - 0.5 * dt * A)
-    sep = torch.linalg.solve(A, Ad - I)
+    Ad = (I + 0.5 * dt * A) @ _inv(I - 0.5 * dt * A)
+    sep = _solve(A, Ad - I)
     return Ad, sep @ B, (sep @ d[..., None])[..., 0]
 
 

@@ -1,7 +1,8 @@
 """Task recipes, the user's API (examples/* of the reference; the JAX
 package's tasks/recipes.py): collect POD data, compute the POD basis,
 collect the TPWL dictionary, check the rollout against the plant, and the
-GuSTO MPC closed loop, with the surrogate plant in place of SOFA.
+closed-loop recipes (GuSTO MPC, iLQR, open-loop GuSTO with a replay,
+ROMPC, Koopman MPC), with the surrogate or tet-FEM plant in place of SOFA.
 
 Every recipe writes its artifacts in the reference's formats (snapshot
 pkl, POD pkl, TPWL dict pkl, sim pkl), so data interchanges with the
@@ -20,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from soft_robot_control_tpu_torch.core.types import QuadraticCost
+from soft_robot_control_tpu_torch.core.types import QuadraticCost, Target
 from soft_robot_control_tpu_torch.models import tpwl_build
 from soft_robot_control_tpu_torch.models.interfaces import TPWLGuSTO
 from soft_robot_control_tpu_torch.models.tpwl import TPWLModel, from_tpwl_dict
@@ -266,6 +267,182 @@ def run_scp(robot, save_dir: str, t_target, z_target, dt_solver=None, N=5,
     return sim
 
 
+def run_ilqr(robot, save_dir: str, t_target, z_target, Qz=None, R=None,
+             Qf=None, sim_duration=6.0, delay=1.0, tf=None,
+             save_prefix="ilqr", observer=None, config=None, u_sat=None,
+             feedback_R=None):
+    """iLQR trajectory optimization and closed-loop tracking (run_ilqr,
+    examples/diamond/diamond.py:318-398) on the robot's device. Qf
+    defaults to zero like the reference's trajectory-tracking configs
+    (trunk.py:374: cost.Qf = np.zeros_like(Qz))."""
+    from soft_robot_control_tpu_torch.control.policies import ilqr as ilqr_ctrl
+
+    dt = robot.dt
+    model = load_tpwl(robot, save_dir).pre_discretize(dt)
+    Hf = robot.get_output_model()
+    nz = Hf.shape[0]
+    Qz = Qz if Qz is not None else 100.0 * np.eye(nz)
+    R = R if R is not None else 1e-2 * np.eye(robot.n_cables)
+    cost = QuadraticCost(Q=Qz, R=R, Qf=np.zeros_like(Qz) if Qf is None else Qf)
+    target = Target(t=t_target, z=np.asarray(z_target), Hf=Hf)
+    controller = ilqr_ctrl(model, cost, target, dt=dt, observer=observer,
+                           delay=delay, tf=tf, config=config,
+                           feedback_R=feedback_R)
+    return _run_and_save(robot, controller, sim_duration, save_dir,
+                         save_prefix, u_sat=u_sat)
+
+
+def run_scp_open_loop(robot, save_dir: str, t_target, z_target, N=100,
+                      dt_solver=None, Qz=None, R=None, U=None, dU=None,
+                      **kwargs):
+    """Open-loop GuSTO trajectory optimization, then its inputs replayed on
+    the plant (run_scp_OL, examples/hardware/diamond.py:400-496). Returns
+    numpy topt, uopt, zopt, the replay's z and the solver."""
+    from soft_robot_control_tpu_torch.scp.standalone import run_gusto_standalone
+
+    dt_solver = dt_solver or 2 * robot.dt
+    model = load_tpwl(robot, save_dir).pre_discretize(robot.dt)
+    gmodel = TPWLGuSTO(model)
+    Hf = robot.get_output_model()
+    nz = Hf.shape[0]
+    Qz = Qz if Qz is not None else 100.0 * np.eye(nz)
+    R = R if R is not None else 1e-3 * np.eye(robot.n_cables)
+    x0 = to_numpy(model.rom.project_x(model.rom.x_ref))
+    xopt, uopt, zopt, topt, gusto = run_gusto_standalone(
+        gmodel, N, dt_solver, Qz, R, x0, t=t_target, z=np.asarray(z_target),
+        U=U, dU=dU, **kwargs)
+    uopt, zopt, topt = to_numpy(uopt), to_numpy(zopt), to_numpy(topt)
+    # the optimized inputs on the plant's grid, held linearly between knots
+    t_u = np.arange(0, topt[-1], robot.dt)
+    u_replay = np.stack([np.interp(t_u, topt[:-1], uopt[:, j])
+                         for j in range(uopt.shape[1])], axis=1)
+    X = to_numpy(_sweep(robot, u_replay))
+    return {"topt": topt, "uopt": uopt, "zopt": zopt, "z_replay": X @ Hf.T,
+            "gusto": gusto}
+
+
+def run_rompc(robot, save_dir: str, t_target, z_target, N=20, N_replan=4,
+              Qz=None, R=None, sim_duration=6.0, delay=1.0,
+              save_prefix="rompc", locp_backend="dense", qp_backend="xla"):
+    """The ROMPC recipe (examples/diamond/diamond_rompc.py): the first TPWL
+    point as an LTI ROM on the robot's device, a Luenberger observer,
+    linear MPC and DARE feedback in closed loop.
+
+    locp_backend='condensed' solves the small state-eliminated QP instead
+    of the sparse one; with qp_backend='pallas' it runs in the batched ADMM
+    kernel."""
+    from soft_robot_control_tpu_torch.control.linear_mpc import LinearMPCService
+    from soft_robot_control_tpu_torch.control.rompc import ROMPC
+    from soft_robot_control_tpu_torch.models.linear import (LinearROM,
+                                                            tpwl_to_linear_rom)
+
+    dt = robot.dt
+    lin_data = tpwl_to_linear_rom(os.path.join(save_dir,
+                                               "tpwl_model_snapshots.pkl"))
+    lin = LinearROM(lin_data, dt, Cf=robot.get_measurement_model(),
+                    Hf=robot.get_output_model(), device=robot.plant.device)
+    H = to_numpy(lin.H)
+    nz = H.shape[0]
+    Qz = Qz if Qz is not None else 100.0 * np.eye(nz)
+    R = R if R is not None else 1e-2 * np.eye(robot.n_cables)
+    # targets shifted into the ROM's z coordinates
+    z_shift = np.asarray(z_target) - to_numpy(lin.z_ref)
+    target = Target(t=t_target, z=z_shift)
+    svc = LinearMPCService(lin, N, dt, QuadraticCost(Q=Qz, R=R, Qf=10.0 * Qz),
+                           target, locp_backend=locp_backend,
+                           qp_backend=qp_backend)
+    nx, ny = lin.state_dim, to_numpy(lin.C).shape[0]
+    ctrl = ROMPC(lin, QuadraticCost(Q=H.T @ Qz @ H, R=R),
+                 QuadraticCost(Q=np.eye(nx), R=np.eye(ny)), dt,
+                 N_replan=N_replan, delay=delay, wait=True,
+                 solver_service=svc)
+    return _run_and_save(robot, ctrl, sim_duration, save_dir, save_prefix)
+
+
+def _delay_rows(yn, un, d):
+    """The delay-embedded rows [y_t, y_{t-1}, ..., y_{t-d}, u_{t-1}, ...,
+    u_{t-d}] for t = d .. T-1 (T = len(yn)), one row a t."""
+    T = len(yn)
+    return np.concatenate([yn[d:T]]
+                          + [yn[d - j - 1:T - j - 1] for j in range(d)]
+                          + [un[d - j - 1:T - j - 1] for j in range(d)],
+                          axis=1)
+
+
+def run_koopman(robot, save_dir: str, t_target, z_target_scaled, delay_embed=2,
+                degree=2, N=8, rollout_horizon=4, Qz=None, R=None,
+                sim_duration=8.0, delay=1.0, nbr_samples=120,
+                save_prefix="koopman", absolute_targets=False,
+                locp_backend="dense", qp_backend="xla"):
+    """The native Koopman recipe (run_koopman, examples/diamond/
+    diamond_koopman.py with the MATLAB training replaced by EDMD): collect
+    data on the plant, scale, train, constrained lifted MPC, closed loop;
+    the outputs are the robot's default output nodes.
+
+    The lifted MPC tracks targets in the training-scaled output
+    coordinates (the reference rescales targets with KoopmanScaling);
+    absolute_targets=True takes absolute outputs and normalizes them with
+    the scaling computed from the training data here."""
+    from soft_robot_control_tpu_torch.control.koopman import KoopmanMPC
+    from soft_robot_control_tpu_torch.control.linear_mpc import LinearMPCService
+    from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
+    from soft_robot_control_tpu_torch.models.koopman import (
+        koopman_model_from_arrays, train_edmd)
+
+    dt = robot.dt
+    dev = robot.plant.device
+    m_in = robot.n_cables
+    s = robot.sequences
+    u_seq, _, _ = s.lhs_sequence(nbr_samples=nbr_samples, t_step=0.25,
+                                 seed=444)
+    u_train = np.asarray(u_seq).T
+    X = to_numpy(_sweep(robot, u_train))
+    Hf = robot.get_output_model()
+    y_train = X[:-1] @ Hf.T
+    ny = y_train.shape[1]
+    y_off = y_train.mean(axis=0)
+    y_fac = np.maximum(np.abs(y_train - y_off).max(axis=0), 1e-9)
+    u_fac = np.maximum(np.abs(u_train).max(axis=0), 1e-9)
+    yn = (y_train - y_off) / y_fac
+    un = u_train / u_fac
+    d = delay_embed
+    nzeta = ny * (d + 1) + m_in * d
+    zeta = _delay_rows(yn, un, d)
+    A, B, C = train_edmd(zeta, un[d:], degree=degree, reg=1e-8, device=dev)
+    km = koopman_model_from_arrays(
+        A, B, C[:ny], n=ny, m=m_in, nzeta=nzeta, delays=d,
+        obs_degree=degree, Ts=dt,
+        scale_dict={"y_offset": y_off, "y_factor": y_fac,
+                    "u_offset": np.zeros(m_in), "u_factor": u_fac},
+        device=dev)
+
+    Qz = Qz if Qz is not None else 100.0 * np.eye(ny)
+    R = R if R is not None else 1e-1 * np.eye(m_in)
+    z_t = np.asarray(z_target_scaled)
+    if absolute_targets:
+        z_t = (z_t - y_off) / y_fac
+    target = Target(t=t_target, z=z_t)
+    U = HyperRectangle(np.ones(m_in), np.zeros(m_in))
+    dU = HyperRectangle(0.08 * np.ones(m_in), -0.08 * np.ones(m_in))
+    # the dU-constrained lifted QP needs a larger fixed ADMM budget than
+    # ROMPC's box QP (the dense path gets max_iter=2000 for the same
+    # reason); cold-start failures fall back to the host adapter
+    svc = LinearMPCService(km, N, dt, QuadraticCost(Q=Qz, R=R, Qf=5 * Qz),
+                           target, U=U, dU=dU, max_iter=2000,
+                           locp_backend=locp_backend, qp_backend=qp_backend,
+                           qp_iters=600, rho_stages=6)
+    ctrl = KoopmanMPC(km, delay=delay, wait=True, solver_service=svc,
+                      rollout_horizon=rollout_horizon)
+    # the Koopman model lives in output coordinates: the controller is fed
+    # the performance output y = Hf x (the reference measures exactly the
+    # output nodes, diamond_koopman.py:180-195), not the full measurement
+    return _run_and_save(robot, ctrl, sim_duration, save_dir, save_prefix,
+                         measurement_matrix=Hf)
+
+
+# ---------------------------------------------------------------------------
+
+
 class _Lin:
     """A measurement or output model y = M x on the plant's device."""
 
@@ -294,6 +471,20 @@ def _run_and_save(robot, controller, sim_duration, save_dir, save_prefix,
                           output_model=_Lin(Hf, dev),
                           u_limits=(robot.u_min * np.ones(m),
                                     u_hi * np.ones(m)))
+    sim = _host(sim)
     if save_dir is not None:
         save_data(os.path.join(save_dir, f"{save_prefix}_sim.pkl"), sim)
     return sim
+
+
+def _host(obj):
+    """obj with every tensor in it, through dicts and lists, as a numpy
+    array: a pickled run holds no tensor, so that either package reads
+    it."""
+    if torch.is_tensor(obj):
+        return to_numpy(obj)
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_host(v) for v in obj]
+    return obj

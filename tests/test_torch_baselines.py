@@ -450,3 +450,35 @@ def test_koopman_mpc_reprojects_measurements_outside_y():
         u_prev = u
     assert outside >= 5
     _close(with_y.data.y_norm, clipped.data.y_norm, 1e-6)
+
+
+class _DeviceTensor(torch.Tensor):
+    """A tensor that numpy cannot read in place, as one on the card: its
+    values reach the host through .cpu() only."""
+
+    def __array__(self, *a, **k):
+        raise TypeError("can't convert a device tensor to numpy")
+
+
+def test_koopman_mpc_takes_the_measurement_as_a_device_tensor():
+    """The closed loop hands the controller the measurement as a tensor on
+    the plant's device (sim/closed_loop.py): KoopmanMPC copies it to its
+    host delay buffer, and its commands are those of numpy measurements.
+    Before the copy, numpy read the tensor in place and a measurement on
+    the card raised."""
+    rng = np.random.default_rng(7)
+    _, tm = _koopman_pair(rng)
+    _, host = _koopman_controllers(None, tm, "pallas", False)
+    _, dev = _koopman_controllers(None, tm, "pallas", False)
+    u_prev = np.zeros(tm.m)
+    with pytest.raises(TypeError):
+        np.asarray(torch.zeros(2).as_subclass(_DeviceTensor))
+    for k in range(8):
+        y = rng.normal(size=tm.n)
+        u = host.evaluate(tm.Ts * k, y, None, u_prev)
+        yd = torch.as_tensor(y).as_subclass(_DeviceTensor)
+        np.testing.assert_array_equal(dev.evaluate(tm.Ts * k, yd, None,
+                                                   u_prev), u)
+        u_prev = u
+    assert len(dev.solve_times) >= 2
+    np.testing.assert_array_equal(dev.data.y_norm, host.data.y_norm)

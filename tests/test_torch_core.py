@@ -63,6 +63,27 @@ def test_discretizers(method):
         close(g, r, atol=1e-9)
 
 
+@pytest.mark.parametrize("method", ["be", "bil"])
+def test_singular_discretization_is_non_finite_as_in_jax(method):
+    """At a point where A is singular and I - dt A (for 'bil', I - dt A /
+    2) too, the implicit discretizers give JAX's non-finite entries, each
+    where JAX has one, and its finite ones (to 1e-12); on the card a check
+    of the factorization raised here (a linear-algebra error, and a host
+    sync a call), where JAX returns the values."""
+    A = np.zeros((2, 3, 3))
+    A[:, 0, 0] = 2.0 if method == "be" else 4.0   # dt A[0, 0] exactly 1 or 2
+    A[1, 1, 2] = 0.3
+    B, d = np.ones((2, 3, 1)), np.ones((2, 3))
+    ref = jdisc.discretize_affine_batch(J(A), J(B), J(d), 0.5, method=method)
+    got = tdisc.discretize_affine_batch(T(A), T(B), T(d), 0.5, method=method)
+    for g, r in zip(got, ref):
+        g, r = np.asarray(g), np.asarray(r)
+        assert not np.isfinite(r).all()
+        assert np.array_equal(np.isfinite(g), np.isfinite(r))
+        assert np.array_equal(np.isnan(g), np.isnan(r))
+        close(g[np.isfinite(r)], r[np.isfinite(r)], atol=1e-12)
+
+
 def test_packing_and_constraints():
     rng = np.random.default_rng(2)
     q, v = rng.normal(size=(3, 4)), rng.normal(size=(3, 4))

@@ -930,3 +930,88 @@ def test_tet_plant_on_the_card_matches_the_cpu(cuda_device):
     for g, r in zip(got, ref):
         assert float((g.cpu() - r).abs().max()) <= 1e-9 * float(
             r.abs().max())
+
+
+def test_block_time_waits_for_the_card(cuda_device):
+    """utils/timing.py:block_time of a call that queues about 50 ms of
+    sleep on the card and then a product: it returns only after the card
+    has finished (the output's event has completed), and its time is at
+    least what CUDA events read for the same call (less 1 ms), and not
+    more than 50 ms above it."""
+    from soft_robot_control_tpu_torch.utils.timing import block_time
+
+    a = torch.ones(256, 256, dtype=torch.float64, device=cuda_device)
+    done = []
+
+    def call():
+        torch.cuda._sleep(100_000_000)
+        out = a @ a
+        ev = torch.cuda.Event()
+        ev.record()
+        done.append(ev)
+        return {"out": [out]}
+
+    call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    call()
+    end.record()
+    torch.cuda.synchronize()
+    ev_ms = start.elapsed_time(end)
+    s = block_time(call)
+    assert done[-1].query()
+    assert ev_ms > 10.0
+    assert ev_ms - 1.0 <= 1e3 * s <= ev_ms + 50.0
+
+
+@pytest.mark.parametrize("recipe", ["rompc", "koopman"])
+def test_lti_recipes_on_the_card_match_the_cpu(cuda_device, tmp_path,
+                                               recipe):
+    """tasks/recipes.py:run_rompc and run_koopman with the condensed LOCP
+    and the batched ADMM kernel ('pallas') on the Diamond surrogate of 10
+    nodes, its dictionary built on the CPU at tests/test_recipes.py's
+    settings: the first replans (0.3 s after a 0.2 s delay; Koopman on 16
+    LHS samples of EDMD data) in f64 on the card and on the CPU, z and u
+    within 1e-6 of their scale; kernel 1 launched on the card only. The
+    closed loop hands the controllers their measurements on the card."""
+    from soft_robot_control_tpu_torch.robots import DiamondRobot
+    from soft_robot_control_tpu_torch.tasks import recipes
+
+    def robot(dev):
+        r = DiamondRobot(n_nodes=10, seed=0, device=dev)
+        r.dt = r.sequences.dt = 0.02
+        return r
+
+    d = str(tmp_path)
+    cpu = robot("cpu")
+    recipes.collect_pod_data(cpu, d, nbr_samples=15, t_step=0.3, seed=1)
+    recipes.compute_pod_basis(d, pod_tolerance=1e-8, pod_type="v")
+    recipes.collect_tpwl_data(cpu, d, threshold=0.4, nbr_samples=15, seed=2)
+    Hf = cpu.get_output_model()
+    z0 = float((cpu.plant.x_rest().numpy() @ Hf.T)[0])
+    tt = 0.02 * np.arange(300)
+    zt = z0 + 0.05 * np.sin(2 * np.pi * tt / 4.0)[:, None]
+    kw = dict(sim_duration=0.3, delay=0.2, locp_backend="condensed",
+              qp_backend="pallas")
+    out = {}
+    for dev, r in ((cuda_device, robot(cuda_device)), ("cpu", cpu)):
+        admm_batched.launches = 0
+        prefix = f"{recipe}_{str(dev)[:4]}"
+        if recipe == "rompc":
+            sim = recipes.run_rompc(r, d, tt, zt, N=20, N_replan=4,
+                                    Qz=np.array([[100.0]]),
+                                    R=1e-4 * np.eye(4), save_prefix=prefix,
+                                    **kw)
+        else:
+            sim = recipes.run_koopman(r, d, tt, zt, delay_embed=1, degree=2,
+                                      N=10, rollout_horizon=4,
+                                      nbr_samples=16, absolute_targets=True,
+                                      save_prefix=prefix, **kw)
+        out[str(dev)] = (sim["z"], sim["u"], admm_batched.launches)
+    card, ref = out[str(cuda_device)], out["cpu"]
+    assert card[2] > 0 and ref[2] == 0
+    for got, want in zip(card[:2], ref[:2]):
+        assert np.abs(got - want).max() <= 1e-6 * max(np.abs(want).max(),
+                                                       1.0)

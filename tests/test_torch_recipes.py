@@ -281,6 +281,117 @@ def test_run_scp_is_the_jax_packages(diamond_runs):
     assert np.array_equal(saved["z"], ts["z"])
 
 
+def _sine_target(robot, amplitude=0.05):
+    """tests/test_recipes.py's sine about the rest tip: (t, z)."""
+    Hf = robot.get_output_model()
+    z0 = float((_np(robot.plant.x_rest()) @ Hf.T)[0])
+    t_t, z_t = jtgt.sine_setpoint(T=4.0, duration=12.0, dt=0.02,
+                                  amplitude=amplitude)
+    return t_t, z_t + z0
+
+
+def _each(offline, run):
+    """run(package's recipes, robot, directory) for both packages."""
+    return {p: run(rec, offline[p]["robot"], offline[p]["dir"])
+            for p, rec in (("j", jrec), ("t", trec))}
+
+
+def _same_loop(sims, prefix, dirname):
+    """Two closed loops at the golden test's tolerances (z rtol 1e-6 /
+    atol 1e-9, u rtol 1e-5 / atol 1e-8), the same number of replans; the
+    port's pickle holds numpy arrays only and equals what it returned."""
+    js, ts = sims["j"], sims["t"]
+    np.testing.assert_allclose(ts["z"], js["z"], rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(ts["u"], js["u"], rtol=1e-5, atol=1e-8)
+    saved = load_data(os.path.join(dirname, f"{prefix}_sim.pkl"))
+    assert np.array_equal(saved["z"], ts["z"])
+
+    def no_tensor(obj):
+        if isinstance(obj, dict):
+            return all(no_tensor(v) for v in obj.values())
+        if isinstance(obj, list):
+            return all(no_tensor(v) for v in obj)
+        return not torch.is_tensor(obj)
+
+    assert no_tensor(saved)
+
+
+def test_run_ilqr_is_the_jax_packages(diamond_runs):
+    """iLQR along the sine over tf = 0.4 s (20 steps, the iLQR config's
+    defaults), then 0.6 s of closed loop after a 0.2 s delay: z and u at
+    the golden test's tolerances."""
+    tt, zt = _sine_target(diamond_runs["t"]["robot"])
+    sims = _each(diamond_runs, lambda rec, robot, d: rec.run_ilqr(
+        robot, d, tt, zt[:, None] if zt.ndim == 1 else zt,
+        Qz=np.array([[200.0]]), sim_duration=0.6, delay=0.2, tf=0.4))
+    assert len(sims["t"]["t"]) == 30
+    _same_loop(sims, "ilqr", diamond_runs["t"]["dir"])
+
+
+def test_run_scp_open_loop_is_the_jax_packages(diamond_runs):
+    """GuSTO's open-loop plan at N=20 (dt 0.04) and its replay on the
+    plant (the plan's inputs interpolated onto the plant's 0.02 s grid):
+    topt exact, uopt and zopt within 1e-8 of their scale, the replay's z
+    within 1e-10. GuSTO's LOCPs run with polish=False: the polish step
+    guesses the active set from the signs of the ADMM duals, which are
+    rounding noise at an inactive bound, so two runtimes can take
+    different plans from the same QP (ROADMAP.md section 3)."""
+    tt, zt = _sine_target(diamond_runs["t"]["robot"])
+    out = _each(diamond_runs, lambda rec, robot, d: rec.run_scp_open_loop(
+        robot, d, tt, zt[:, None] if zt.ndim == 1 else zt, N=20,
+        polish=False))
+    jo, to = out["j"], out["t"]
+    assert np.array_equal(to["topt"], np.asarray(jo["topt"]))
+    _close(to["uopt"], np.asarray(jo["uopt"]), 1e-8, "uopt")
+    _close(to["zopt"], np.asarray(jo["zopt"]), 1e-8, "zopt")
+    # the plant's rest state, then one step a grid point of [0, topt[-1])
+    assert to["z_replay"].shape == np.asarray(jo["z_replay"]).shape == (
+        41, 1)
+    _close(to["z_replay"], jo["z_replay"], 1e-10, "z_replay")
+
+
+def test_run_rompc_is_the_jax_packages(diamond_runs):
+    """ROMPC on the dictionary's first point at the baselines campaign's
+    weights (N=20, N_replan=4) with the condensed LOCP and the fixed-budget
+    staged ADMM ('pallas': the batched ADMM kernel's plain version here,
+    the JAX Pallas kernel in interpret mode), the card path: 0.8 s after a
+    0.2 s delay (10 replans), z and u at the golden test's tolerances.
+    That backend has no polish step, so its plans are unambiguous."""
+    tt, zt = _sine_target(diamond_runs["t"]["robot"])
+    sims = _each(diamond_runs, lambda rec, robot, d: rec.run_rompc(
+        robot, d, tt, zt[:, None] if zt.ndim == 1 else zt, N=20,
+        N_replan=4, Qz=np.array([[100.0]]), R=1e-4 * np.eye(4),
+        sim_duration=0.8, delay=0.2, locp_backend="condensed",
+        qp_backend="pallas"))
+    assert len(sims["t"]["info"]["solve_times"]) == len(
+        sims["j"]["info"]["solve_times"]) >= 8
+    _same_loop(sims, "rompc", diamond_runs["t"]["dir"])
+
+
+def test_run_koopman_is_the_jax_packages(diamond_runs):
+    """The Koopman recipe at the baselines campaign's settings (delay 1,
+    degree 2, N=10, rollout_horizon=4, absolute targets) on 16 LHS samples
+    of EDMD data, condensed and 'pallas' as ROMPC above: 0.6 s after a 0.2
+    s delay, z and u at the golden test's tolerances. The delay rows
+    (vectorized in the port) are the JAX recipe's loop's exactly."""
+    tt, zt = _sine_target(diamond_runs["t"]["robot"])
+    sims = _each(diamond_runs, lambda rec, robot, d: rec.run_koopman(
+        robot, d, tt, zt[:, None] if zt.ndim == 1 else zt, delay_embed=1,
+        degree=2, N=10, rollout_horizon=4, sim_duration=0.6, delay=0.2,
+        nbr_samples=16, absolute_targets=True, locp_backend="condensed",
+        qp_backend="pallas"))
+    assert len(sims["t"]["info"]["solve_times"]) >= 3
+    _same_loop(sims, "koopman", diamond_runs["t"]["dir"])
+    rng = np.random.default_rng(0)
+    yn, un = rng.normal(size=(9, 3)), rng.normal(size=(9, 4))
+    for d in (0, 1, 2):
+        loop = np.asarray([np.hstack([yn[t]]
+                                     + [yn[t - j - 1] for j in range(d)]
+                                     + [un[t - j - 1] for j in range(d)])
+                           for t in range(d, len(yn))])
+        assert np.array_equal(trec._delay_rows(yn, un, d), loop)
+
+
 # --------------------------------------------------------------------------
 # 2. the modules, on small inputs
 

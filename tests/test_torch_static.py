@@ -82,6 +82,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/tasks/targets.py",
             "soft_robot_control_tpu_torch/tasks/problem.py",
             "soft_robot_control_tpu_torch/tasks/analysis.py",
+            "soft_robot_control_tpu_torch/models/ssm_learn.py",
+            "soft_robot_control_tpu_torch/tasks/sysid_export.py",
+            "soft_robot_control_tpu_torch/tasks/baseline_comparison.py",
+            "soft_robot_control_tpu_torch/tasks/plotting.py",
+            "soft_robot_control_tpu_torch/utils/geometry.py",
+            "soft_robot_control_tpu_torch/utils/timing.py",
+            "soft_robot_control_tpu_torch/utils/marshal.py",
+            "soft_robot_control_tpu_torch/utils/native.py",
+            "soft_robot_control_tpu_torch/utils/gatekeeper.py",
             "tools/stream_variants.py", "tools/pipeline_widths.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
@@ -89,6 +98,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the check compares whole names: the port's own package is allowed
     assert "soft_robot_control_tpu_torch" in _imported_roots(
         os.path.join(REPO, "chip_smoke.py"))
+
+
+def test_port_imports_matplotlib_only_inside_functions():
+    """The card's machine has no matplotlib: no file of the port imports
+    it when it is loaded (the plotting modules import it in the function
+    that draws)."""
+    late = []
+    for f in _port_files():
+        tree = ast.parse(open(f).read(), filename=f)
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+                if any(m and m.split(".")[0] == "matplotlib" for m in mods):
+                    late.append(os.path.relpath(f, REPO))
+    assert late == []
 
 
 def _entry_points():
@@ -131,6 +156,8 @@ def _entry_points():
     from soft_robot_control_tpu_torch.sim.fem_tet import (LEAVES, TetFEM,
                                                           build_tet_fem,
                                                           make_box_mesh)
+    from soft_robot_control_tpu_torch.models.ssm_learn import learn_ssm
+    from soft_robot_control_tpu_torch.utils import geometry
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
@@ -210,6 +237,11 @@ def _entry_points():
             {**leaves, "dt": 0.01, "cg_iters": 80, "cg_tol": 1e-6}),
         "DiamondTetRobot": lambda: robots.DiamondTetRobot(
             mesh_path=os.devnull, cache=False),
+        "learn_ssm": lambda: learn_ssm(
+            [np.random.default_rng(0).normal(size=(40, 2))], 0.01,
+            state_dim=2, SSM_order=1, ROM_order=1, z_ref=np.zeros(2)),
+        "quat_identity": lambda: geometry.quat_identity(),
+        "trs_to_matrix": lambda: geometry.trs_to_matrix([1.0, 2.0, 3.0]),
     }
 
 
@@ -229,7 +261,9 @@ def _entry_points():
                                   "build_tpwl_model", "DiamondRobot",
                                   "collect_pod_data", "run_scp",
                                   "build_tet_fem", "TetFEM",
-                                  "tet_fem_from_arrays", "DiamondTetRobot"])
+                                  "tet_fem_from_arrays", "DiamondTetRobot",
+                                  "learn_ssm", "quat_identity",
+                                  "trs_to_matrix"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -260,11 +294,8 @@ def test_subpackages_reexport_the_jax_names(sub):
 
 
 # Public names of ported JAX files that later slices bring, each with its
-# ROADMAP.md section 1 item: the closed-loop recipes (item 4)
-LEFT_TO_LATER = {
-    "tasks/recipes.py": {"run_ilqr", "run_scp_open_loop", "run_rompc",
-                         "run_koopman"},
-}
+# ROADMAP.md section 1 item (none is left)
+LEFT_TO_LATER = {}
 
 
 def _public_names(path):
