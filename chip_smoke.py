@@ -207,6 +207,30 @@ the tolerances stated below.
    block_time on the ROMPC replan's fused step against CUDA events, and
    utils/native.py's library built on the machine (native_available, a
    parse_matrix_txt and SnapLog round trip).
+25. scale-out (parallel/mesh.py) on one card, the mesh's devices the card
+   given again and again, and the entry points that run on committed
+   data: (a) the campaign dictionary split over mp = 2, 4, 8 parts, the
+   sharded select (one index-only launch of kernel 2 with its distances
+   a part, the least distance winning, ties to the lowest part, each row
+   copied from its owner) at B=5120, at B=3072 with index_only=1024 and at
+   B=1, f64 and f32: indices and rows identical to the unsharded kernel's;
+   the kernel's distance output held to the plain version; the sharded
+   select and one part's launch timed beside the unsharded launch;
+   (b) sharded_rollout_batch at dp=2 x mp=4 (B=1024, 5 steps, f32): each
+   step's indices those of the unsharded kernel, the states those of
+   rollout_batch(select='exact') bit for bit; (c) phase 7's loop through
+   sharded_batch_mpc_fused_mp at dp=1 x mp=4 (equal to the unsharded run
+   bit for bit) and dp=2 x mp=4, and sharded_batch_mpc_fused at dp=4
+   (kernel 1 held and timed at the dp part's B=256), the dp runs, as the
+   unsharded one, within CPU_AGREE_TOL of the unsharded loop in f64 on the
+   card: windows/s and launches a window; dp=2 x mp=4 in f64 at B=16
+   against the unsharded f64 CPU run within SCALE_F64_TOL of the scale;
+   (d) the launch twin's chain on the surrogate Diamond (run_scp for
+   SCALE_SCP_S s), realtime_mpc --campaign diamond for SCALE_RT_SECONDS s
+   with its real-time gates, batched_serving at B=1024 with and without
+   --mesh 4, the noisy campaign (its gates; its noise-free error within
+   NOISY_REL of the committed JAX figure) and the Dubins demo. Phase
+   22(a) runs the diamond_pipeline twin.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Each timed kernel row prints the kernel's earlier time on the card
@@ -264,7 +288,16 @@ from soft_robot_control_tpu_torch.models.linear import (  # noqa: E402
 from soft_robot_control_tpu_torch.models.ssm import from_mat  # noqa: E402
 from soft_robot_control_tpu_torch.models.tpwl import (  # noqa: E402
     from_tpwl_dict, rollout_batch)
+from soft_robot_control_tpu_torch import launch  # noqa: E402
+from soft_robot_control_tpu_torch.examples import (  # noqa: E402
+    batched_serving, dubins_gusto, noisy_batch_mpc_campaign, realtime_mpc)
+from soft_robot_control_tpu_torch.examples import (  # noqa: E402
+    diamond_pipeline as pipeline_twin)
 from soft_robot_control_tpu_torch.ops import build  # noqa: E402
+from soft_robot_control_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402,E501
+from soft_robot_control_tpu_torch.parallel.mesh import (  # noqa: E402
+    PointShards, make_mesh, sharded_batch_mpc_fused,
+    sharded_batch_mpc_fused_mp, sharded_rollout_batch)
 from soft_robot_control_tpu_torch.ops.admm_batched import (  # noqa: E402
     admm_batched, admm_batched_plain, admm_cluster, admm_stream,
     cluster_max_active, cluster_plan, cluster_plan_built, stream_max_active,
@@ -301,10 +334,6 @@ from soft_robot_control_tpu_torch.sim.modal import (  # noqa: E402
 from soft_robot_control_tpu_torch.sim.measurement import (  # noqa: E402
     linearModel)
 from soft_robot_control_tpu_torch.tasks import recipes  # noqa: E402
-from soft_robot_control_tpu_torch.tasks.analysis import (  # noqa: E402
-    summarize)
-from soft_robot_control_tpu_torch.tasks.targets import (  # noqa: E402
-    sine_setpoint)
 from soft_robot_control_tpu_torch.utils.device import to_numpy  # noqa: E402
 from tet_box import box_plant  # noqa: E402
 
@@ -543,6 +572,19 @@ SSM_MPC_WINDOWS, UTIL_REPS = 4, 20
 # block_time's wall ms may fall short of the CUDA events' ms of the same
 # call by no more than the events' resolution (about 0.5 us)
 BLOCK_TIME_SLACK_MS = 0.01
+# Phase 25: the parts of the dictionary the sharded select runs on; the
+# kernel's distance to its point against the plain version's (torch.cdist),
+# relative: each sums r squared differences in its own order
+SCALE_MP = (2, 4, 8)
+SELECT_DIST_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+# states of the sharded rollout; batch of the f64 sharded loop, whose z and
+# u must stay within this fraction of their scale of the unsharded f64 CPU
+# run's (the same f64 arithmetic, summed in other orders on the card)
+SCALE_ROLL_B, SCALE_F64_B, SCALE_F64_TOL = 1024, 16, 1e-10
+# seconds of the launch twin's run_scp and of the real-time loop; the
+# noisy campaign's noise-free error against the committed JAX figure,
+# relative (its f32 run on a TPU; the port's on the card)
+SCALE_SCP_S, SCALE_RT_SECONDS, NOISY_REL = 1.5, 2.0, 0.1
 # the MPC's figure-8 about rest, in x and y, as a fraction of the decays'
 # largest tip excursion: the campaign's 15 mm figure-8 is for the Diamond
 # mesh, and 900 mN move this stiffer stand-in's tip about 0.5 mm, beyond
@@ -1125,6 +1167,7 @@ def phase_fused(tag, mpc, model64, zt, card, want, want_f64, cpu_tol,
     # the same loop at B=8, in f32 and in f64 on the card, against the
     # port's f64 run on the CPU
     cpu_mpc = make_mpc(model64.to(device="cpu"), torch.float64, "cpu", path)
+    out["cpu_mpc"] = cpu_mpc  # phase 25's f64 reference; not recorded
     x0c = np.zeros((B_CPU, mpc.n_x))
     ref = cpu_mpc.build_fused(N_WIN)(x0c, x0c, zt[:B_CPU])["z"].numpy()
     run64 = make_mpc(model64, torch.float64, mpc.device,
@@ -2794,41 +2837,35 @@ def dictionary_steps(robot, model, nbr_samples, seed):
 
 
 def diamond_pipeline(device):
-    """examples/diamond_pipeline.py on `device` in f64: DiamondRobot(
+    """examples/diamond_pipeline.py's twin (soft_robot_control_tpu_torch/
+    examples/diamond_pipeline.py) on `device` in f64: DiamondRobot(
     n_nodes=10), dt 0.02; POD data (15 samples, seed 1), the basis (1e-8,
     'v'), the dictionary (threshold 0.4, 15 samples), the rollout check,
     run_scp (Qz = 200, 5 s after a 0.5 s delay) and the summary. Returns
     the stages' results, wall times and kernel-2 launches."""
-    robot = DiamondRobot(n_nodes=10, device=device)
-    robot.dt = 0.02
-    robot.sequences.dt = 0.02
     d = os.path.join(PIPE_DIR, f"diamond10_{torch.device(device).type}")
     stages = {}
-    stage = stage_runner(stages)
-    out = dict(robot=robot, stages=stages)
-    out["snap"] = stage("pod_data", lambda: recipes.collect_pod_data(
-        robot, d, nbr_samples=15, seed=1))
-    out["pod"] = stage("pod_basis", lambda: recipes.compute_pod_basis(
-        d, pod_tolerance=1e-8, pod_type="v"))
-    out["model"] = stage("tpwl_data", lambda: recipes.collect_tpwl_data(
-        robot, d, threshold=0.4, nbr_samples=15))
-    reset_counts()
-    out["check"] = stage("rollout_check",
-                         lambda: recipes.tpwl_rollout_check(robot, d))
-    out["rollout_launches"] = read_counts()
-    Hf = robot.get_output_model()
-    z0 = float((to_numpy(robot.plant.x_rest()) @ Hf.T)[0])
-    t_t, z_t = sine_setpoint(T=4.0, duration=12.0, dt=0.02, amplitude=0.05)
-    z_t = z_t + z0
-    reset_counts()
-    with launches_per_call(GuSTOService, "_solve") as per_query:
-        out["sim"] = stage("run_scp", lambda: recipes.run_scp(
-            robot, d, t_t, z_t, Qz=np.array([[200.0]]), sim_duration=5.0,
-            delay=0.5))
-    out["scp_launches"] = read_counts()
-    out["per_query"] = per_query
-    out["summary"] = summarize(out["sim"], t_t + 0.5, z_t, t_start=1.5)
-    out["steps"] = dictionary_steps(robot, out["model"], 15, 222)
+    timed = stage_runner(stages)
+    out = dict(stages=stages)
+
+    def stage(name, fn):
+        if name == "rollout_check":
+            reset_counts()
+            res = timed(name, fn)
+            out["rollout_launches"] = read_counts()
+        elif name == "run_scp":
+            reset_counts()
+            with launches_per_call(GuSTOService, "_solve") as per_query:
+                res = timed(name, fn)
+            out["scp_launches"] = read_counts()
+            out["per_query"] = per_query
+        else:
+            res = timed(name, fn)
+        return res
+
+    out.update(pipeline_twin.pipeline(d, device, stage=stage,
+                                      log=lambda line: None))
+    out["steps"] = dictionary_steps(out["robot"], out["model"], 15, 222)
     return out
 
 
@@ -3997,6 +4034,347 @@ def phase_utils(rompc_ctrl, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: scale-out (parallel/mesh.py) on one card, and the entry points
+# that run on committed data (launch.py's and the examples' twins)
+
+
+def part_row(tag, shards, dev, x, card):
+    """One part's launch of kernel 2 as the sharded select makes it (all
+    states index-only, with the distances) timed beside its plain version
+    and its bound: states and the part's coordinates read once, every
+    index and distance written once; per state and point 3 operations a
+    coordinate, 2 roots, 3 more."""
+    p = shards.parts[0][dev]
+    args = (x, p["q"], p["v"], p["A_d"], p["B_d"], p["d_d"],
+            shards.dist_w_q, shards.dist_w_v)
+    B, (P, r) = x.shape[0], p["q"].shape
+    ms = cuda_ms(lambda: tpwl_select(*args, index_only=B, distances=True),
+                 50)
+    clk = clocks()
+    plain_ms = cuda_ms(lambda: tpwl_select_plain(*args, B, True), 5)
+    nbytes = x.element_size() * (B * 2 * r + P * 2 * r + B) + 8 * B
+    bound_ms, bound_by = bound(nbytes, B * P * (6 * r + 5))
+    print(f"[{tag}] tpwl_select part launch {str(x.dtype)[6:]} B={B} "
+          f"P={P} index-only with distances: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}; "
+          f"after it SM clock, max, power, temperature: {clk}]")
+    return dict(B=B, P=P, index_only=B, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                clocks=clk)
+
+
+def phase_sharded_select(model64, model, x64, card, dev):
+    """Phase 25(a): the dictionary split over mp = SCALE_MP parts of the
+    card: at the plan's B=5120, the tick's B=3072 with index_only=1024 and
+    B=1, in f64 and f32, the sharded select's indices and rows identical to
+    the unsharded kernel's and mp launches a select; the kernel's distance
+    output held to the plain version (SELECT_DIST_TOL); in f32 the sharded
+    select and the unsharded launch timed, and one part's launch timed at
+    the plan's and the tick's shape beside its bound."""
+    out = {"rows": {}}
+    shapes = ((N * B_MAIN, 0), ((1 + N_REPLAN) * B_MAIN, B_MAIN), (1, 0))
+    dist_err = 0.0
+    for mdl in (model64, model):
+        dt = mdl.q.dtype
+        name = str(dt)[6:]
+        dic = (mdl.q, mdl.v, mdl.A_d, mdl.B_d, mdl.d_d, mdl.dist_w_q,
+               mdl.dist_w_v)
+        for B, k in shapes:
+            x = x64[:B].to(dt)
+            got = tpwl_select(*((x,) + dic), index_only=k, distances=True)
+            ref = tpwl_select(*((x,) + dic), index_only=k)
+            plain = tpwl_select_plain(*((x,) + dic), k, distances=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got[:4], ref)),
+                  f"tpwl_select {name} B={B}: the distance output changed "
+                  "the select")
+            same = got[0] == plain[0]
+            rel = float(((got[4] - plain[4]).abs() / plain[4])[same].max())
+            err = float((got[4] - plain[4]).abs()[same].max())
+            print(f"[scale-out] tpwl_select {name} B={B} index_only={k}: "
+                  f"distance output against the plain version {rel:.3e} "
+                  f"relative, {err:.3e} absolute (tol "
+                  f"{SELECT_DIST_TOL[dt]}), {int((~same).sum())} index "
+                  "differences (near-ties)")
+            check(rel <= SELECT_DIST_TOL[dt], f"tpwl_select {name} B={B}: "
+                  f"distance {rel} off the plain version's")
+            if dt == torch.float32:
+                dist_err = max(dist_err, err)
+        for mp in SCALE_MP:
+            mesh = make_mesh(1, mp, devices=[dev] * mp)
+            shards = PointShards(mdl, mesh)
+            for B, k in shapes:
+                x = x64[:B].to(dt)
+                ref = tpwl_select(*((x,) + dic), index_only=k)
+                n0 = tpwl_select.launches
+                got = shards.select(x, mesh.devices[0], index_only=k)
+                torch.cuda.synchronize()
+                check(tpwl_select.launches - n0 == mp,
+                      f"sharded select mp={mp}: {tpwl_select.launches - n0}"
+                      f" launches, expected {mp}")
+                check(torch.equal(got[0], ref[0]), f"sharded select {name} "
+                      f"mp={mp} B={B}: "
+                      f"{int((got[0] != ref[0]).sum())} indices differ")
+                check(all(torch.equal(a, b) for a, b in zip(got[1:4],
+                                                            ref[1:])),
+                      f"sharded select {name} mp={mp} B={B}: rows differ")
+                if dt != torch.float32 or B == 1:
+                    continue
+                tag = f"mp={mp} B={B} index_only={k}"
+                ms = cuda_ms(lambda: shards.select(x, mesh.devices[0],
+                                                   index_only=k), 20)
+                ms1 = cuda_ms(lambda: tpwl_select(*((x,) + dic),
+                                                  index_only=k), 20)
+                print(f"[scale-out] sharded select f32 {tag}: {ms:.4f} ms "
+                      f"(mp launches, the host's read of the owners' "
+                      f"counts, the owners' row copies), unsharded launch "
+                      f"{ms1:.4f} ms; identical indices, rows bitwise "
+                      f"[{card}]")
+                out[tag] = dict(ms=ms, unsharded_ms=ms1)
+                out["rows"][tag] = part_row(f"scale-out {tag}", shards,
+                                               dev, x, card)
+    print(f"[scale-out] sharded select: indices identical to the unsharded "
+          f"kernel's and rows bitwise at mp={SCALE_MP}, every shape, f64 "
+          f"and f32")
+    out["distance_max_abs_err_f32"] = dist_err
+    return out
+
+
+def phase_sharded_rollout(model, card, dev):
+    """Phase 25(b): sharded_rollout_batch at dp=2 x mp=4 on the dictionary,
+    SCALE_ROLL_B states near rest for N steps of smooth admissible inputs,
+    f32: each step's indices (every sharded select's) identical to the
+    unsharded kernel's at the same states, and the states equal to
+    rollout_batch(select='exact') bit for bit."""
+    B = SCALE_ROLL_B
+    rng = np.random.default_rng(8)
+    x0 = torch.as_tensor(0.05 * rng.normal(size=(B, model.state_dim)),
+                         dtype=torch.float32, device=dev)
+    u = torch.as_tensor(1500.0 * rng.uniform(size=(B, N, model.input_dim)),
+                        dtype=torch.float32, device=dev)
+    mesh = make_mesh(2, 4, devices=[dev] * 8)
+    reset_counts()
+    with results_of(mesh_mod.PointShards, "select") as sel:
+        X = sharded_rollout_batch(model, x0, u, model.pre_discretized_dt,
+                                  mesh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ref = rollout_batch(model, x0, u, model.pre_discretized_dt,
+                        select="exact")
+    half = B // 2
+    for t in range(N):
+        idx = torch.cat([sel[2 * t][0], sel[2 * t + 1][0]])
+        want = tpwl_select(X[:, t], model.q, model.v, model.A_d, model.B_d,
+                           model.d_d, model.dist_w_q, model.dist_w_v,
+                           index_only=B)[0]
+        check(torch.equal(idx, want), f"sharded rollout step {t}: indices "
+              "differ")
+    check(len(sel) == 2 * N and all(s[0].shape[0] == half for s in sel),
+          f"sharded rollout: {len(sel)} selects")
+    check(torch.equal(X, ref), "sharded rollout: states differ from "
+          "rollout_batch(select='exact')")
+    print(f"[scale-out] sharded_rollout_batch dp=2 x mp=4, B={B}, {N} steps:"
+          f" indices identical at every step, states equal to "
+          f"rollout_batch(select='exact') bit for bit; launches {counts}")
+    return dict(B=B, steps=N, launches=counts)
+
+
+def scaled_runs(tag, run, x0, zt, n_timed):
+    """run(x0, x0, zt) once with the launches counted (their count a
+    window returned), then n_timed runs on the host clock: windows/s at
+    the median."""
+    reset_counts()
+    logs = run(x0, x0, zt)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    runs_ms = []
+    for _ in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(x0, x0, zt)
+        torch.cuda.synchronize()
+        runs_ms.append(1e3 * (time.perf_counter() - t0))
+    B = x0.shape[0]
+    wps = B * N_WIN / (float(np.median(runs_ms)) / 1e3)
+    per_window = {k: v / N_WIN for k, v in counts.items()}
+    print(f"[{tag}] {wps:.1f} windows/s (median of {n_timed} runs of "
+          f"{N_WIN} windows at B={B}, f32: {float(np.median(runs_ms)):.2f} "
+          f"ms; min {min(runs_ms):.2f}, max {max(runs_ms):.2f}); launches a "
+          f"window {per_window}")
+    return logs, dict(windows_per_s=wps, runs_ms=runs_ms, launches=counts,
+                      launches_per_window=per_window)
+
+
+def phase_sharded_mpc(model64, mpc, zt, cpu_mpc, card, dev):
+    """Phase 25(c): the headline condensed loop (phase 7's BatchMPC, B=1024,
+    4 windows, f32) through sharded_batch_mpc_fused at dp=4 and
+    sharded_batch_mpc_fused_mp at dp=1 x mp=4 and dp=2 x mp=4. The mp-only
+    run equals the unsharded run bit for bit (the same batch, the same
+    indices, the rows copied). A dp part's loop rounds apart from the
+    whole batch's (its batched products and factorizations run at another
+    batch size), so the dp runs, like the unsharded run, are held to phase
+    7's f32 tolerance, CPU_AGREE_TOL of the z variation, against the
+    unsharded loop in f64 on the card (phase 7 holds that one to the f64
+    CPU run); kernel 1 4 launches a window a dp part, kernel 2 3 mp a window
+    a dp part. Then dp=2 x mp=4 in f64 at B=SCALE_F64_B against the port's
+    unsharded f64 CPU run, z and u within SCALE_F64_TOL of their scale."""
+    x0 = torch.zeros((B_MAIN, mpc.n_x), dtype=torch.float32, device=dev)
+    out = {}
+    mpc64 = make_mpc(model64, torch.float64, dev)
+    z64 = mpc64.build_fused(N_WIN)(x0.double(), x0.double(), zt)[
+        "z"].cpu().numpy()
+
+    def rel_z(z, zr):
+        return float(np.linalg.norm(z - zr)
+                     / np.linalg.norm(zr - zr.mean(axis=(0, 1))))
+
+    ref, out["unsharded"] = scaled_runs(
+        "scale-out unsharded", mpc.build_fused(N_WIN), x0, zt, 5)
+    zr = ref["z"].cpu().numpy()
+    out["unsharded"]["rel_z_diff_f64"] = rel_z(zr, z64)
+    print(f"[scale-out unsharded] f32 against f64 on the card at "
+          f"B={B_MAIN}: rel z difference "
+          f"{out['unsharded']['rel_z_diff_f64']:.3e} (recorded; phase 7 "
+          f"holds its f32 loop at B={B_CPU})")
+    T = N_WIN * N_REPLAN
+    plans = (("mp", sharded_batch_mpc_fused_mp, 1, 4),
+             ("dp", sharded_batch_mpc_fused, 4, 1),
+             ("dp_mp", sharded_batch_mpc_fused_mp, 2, 4))
+    for name, build_fn, dp, mp in plans:
+        tag = f"scale-out dp={dp} x mp={mp}"
+        mesh = make_mesh(dp, mp, devices=[dev] * (dp * mp))
+        rec = (recording(batch_mpc, "admm_batched", n=4 * N_WIN * dp)
+               if name == "dp" else contextlib.nullcontext([]))
+        with rec as calls:
+            logs, o = scaled_runs(tag, build_fn(mpc, N_WIN, mesh), x0, zt, 3)
+        want = {"admm_batched": 4 * N_WIN * dp,
+                "tpwl_select": (1 + N_REPLAN) * mp * N_WIN * dp}
+        z, u = check_logs(tag, logs, (B_MAIN, T, mpc.n_z),
+                          (B_MAIN, T, mpc.n_u), o["launches"], want)
+        o["rel_track"] = rel_track(z, zt)
+        if name == "mp":
+            same = all(torch.equal(logs[k], ref[k]) for k in ("z", "u"))
+            print(f"[{tag}] logs {'equal' if same else 'differ from'} the "
+                  "unsharded run's bit for bit")
+            check(same, f"{tag}: logs differ from the unsharded run")
+        else:
+            o["rel_z_diff_f64"] = rel_z(z, z64)
+            o["rel_z_diff_f32"] = rel_z(z, zr)
+            print(f"[{tag}] f32 against the unsharded f64 run on the card: "
+                  f"rel z difference {o['rel_z_diff_f64']:.3e} (tol "
+                  f"{CPU_AGREE_TOL}); against the unsharded f32 run "
+                  f"{o['rel_z_diff_f32']:.3e}")
+            check(o["rel_z_diff_f64"] <= CPU_AGREE_TOL,
+                  f"{tag}: z off the unsharded f64 run")
+        if name == "dp":
+            o["admm"] = hold_recipe_admm(tag, calls, card)
+        out[name] = o
+    # f64: dp=2 x mp=4 on the card against the unsharded run on the CPU
+    B = SCALE_F64_B
+    x0c = np.zeros((B, mpc.n_x))
+    want = cpu_mpc.build_fused(N_WIN)(x0c, x0c, zt[:B])
+    reset_counts()
+    got = sharded_batch_mpc_fused_mp(
+        mpc64, N_WIN, make_mesh(2, 4, devices=[dev] * 8))(x0c, x0c, zt[:B])
+    counts = read_counts()
+    diffs = {k: rel_diff(got[k].cpu().numpy(), want[k].numpy())
+             for k in ("z", "u")}
+    print(f"[scale-out dp=2 x mp=4] f64 B={B} card vs the unsharded f64 CPU "
+          f"run: z {diffs['z']:.3e}, u {diffs['u']:.3e} of their scale "
+          f"(tol {SCALE_F64_TOL}); launches {counts}")
+    check(max(diffs.values()) <= SCALE_F64_TOL,
+          f"scale-out f64: card vs CPU {diffs}")
+    out["f64"] = dict(B=B, rel_diff=diffs, launches=counts)
+    return out
+
+
+def phase_entry_points(card, dev):
+    """Phase 25(d): the entry points, each called as a user runs it: the
+    launch twin's chain on the surrogate Diamond (f64; run_scp for
+    SCALE_SCP_S s), realtime_mpc --campaign diamond --seconds
+    SCALE_RT_SECONDS with its real-time gates, batched_serving at B=1024
+    without and with --mesh 4, the noisy campaign (its gates, and its
+    noise-free error within NOISY_REL of the committed JAX figure) and the
+    Dubins demo; launches of each counted."""
+    out = {}
+    d = os.path.join(HERE, "build", "launch")
+    res, t0 = {}, time.perf_counter()
+    reset_counts()
+    for recipe, extra in (("collect_pod_data", []), ("compute_pod_basis", []),
+                          ("collect_tpwl_data", []), ("tpwl_check", []),
+                          ("run_scp", ["--duration", str(SCALE_SCP_S)])):
+        res[recipe] = launch.main(["diamond", recipe, "--save-dir", d,
+                                   "--device", dev.type] + extra)
+    nums = [v for r in res.values() for v in r.values()
+            if isinstance(v, (int, float))]
+    check(bool(np.isfinite(nums).all()), f"launch chain: {res}")
+    out["launch"] = dict(results=res, s=time.perf_counter() - t0,
+                         launches=read_counts())
+    print(f"[entry points] launch chain on the surrogate Diamond: "
+          f"{out['launch']['s']:.1f} s, launches {out['launch']['launches']}")
+
+    reset_counts()
+    rt = realtime_mpc.main(["--campaign", "diamond", "--seconds",
+                            str(SCALE_RT_SECONDS), "--device", dev.type,
+                            "--json",
+                            os.path.join(HERE, "build", "realtime_mpc.json")])
+    counts = read_counts()
+    check(not realtime_mpc.realtime_gates(rt), f"real-time gates: {rt}")
+    per = {k: v / (rt["n_steps"] + 1) for k, v in counts.items()}
+    print(f"[entry points] realtime_mpc --campaign diamond: p50 "
+          f"{rt['total_ms_p50']:.3f} ms, p99 {rt['total_ms_p99']:.3f} ms, "
+          f"compute mean {rt['compute_ms_mean']:.3f} ms, misses "
+          f"{rt['compute_budget_misses']}/{rt['n_steps']} of the "
+          f"{rt['deadline_ms']:.0f} ms deadline; launches a dispatch {per} "
+          f"[{card}]")
+    out["realtime"] = dict(rt, launches_per_dispatch=per)
+
+    out["serving"] = {}
+    for mesh in (0, 4):
+        reset_counts()
+        argv = (["--batch", str(B_MAIN), "--device", dev.type]
+                + (["--mesh", "4"] if mesh else []))
+        s = batched_serving.main(argv)
+        out["serving"][f"mesh={mesh}"] = dict(
+            windows_per_s=s["windows_per_s"], first_call_s=s["first_call_s"],
+            launches=read_counts())
+        print(f"[entry points] batched_serving B={B_MAIN} mesh={mesh}: "
+              f"{s['windows_per_s']:.1f} windows/s [{card}]")
+
+    reset_counts()
+    noisy = noisy_batch_mpc_campaign.main(
+        ["--out", os.path.join(HERE, "build", "noisy_batch_mpc.json"),
+         "--device", dev.type])
+    with open(os.path.join(HERE, "examples", "diamond_tet",
+                           "noisy_batch_mpc.json")) as f:
+        jax_free = json.load(f)["noise"]["0.0"]
+    free = noisy["noise"]["0.0"]
+    gap = abs(free - jax_free) / jax_free
+    print(f"[entry points] noisy campaign: {noisy['noise']}; noise-free "
+          f"{free:.5f} against the committed JAX figure {jax_free:.5f} "
+          f"({gap:.3f} apart, limit {NOISY_REL}); gates hold; launches "
+          f"{read_counts()}")
+    check(not noisy_batch_mpc_campaign.noisy_gates(noisy),
+          f"noisy gates: {noisy}")
+    check(gap <= NOISY_REL, f"noisy campaign: noise-free {free} against "
+          f"{jax_free}")
+    out["noisy"] = dict(noisy, noise_free_gap=gap, launches=read_counts())
+
+    t0 = time.perf_counter()
+    x, u, _, t_solve, iters = dubins_gusto.solve(dev, verbose=0)
+    s = time.perf_counter() - t0
+    print(f"[entry points] dubins_gusto: terminal {np.round(x[-1], 3)}, "
+          f"max |du| {np.abs(np.diff(u, axis=0)).max():.3f}, {iters} SCP "
+          f"iterations, {s:.2f} s [{card}]")
+    check(np.abs(x[-1, :2] - [4.0, 5.0]).max() < 0.2
+          and np.abs(np.diff(u, axis=0)).max() <= 0.1 + 1e-6,
+          "dubins_gusto: target missed")
+    out["dubins"] = dict(s=s, iterations=iters,
+                         terminal=x[-1].tolist())
+    return out
+
+
 class PhaseClock:
     """Wall seconds of each phase (or group of short phases), printed as each ends, so that
     a run's time against its limit can be read by phase."""
@@ -4096,6 +4474,8 @@ def main():
         "path A", mpc_a, model64, zt, card, {**none, "admm_cluster": 4},
         {**none, "admm_stream": 4}, PATH_A_CPU_AGREE_TOL, 5)
     rec["path_b"] = phase_single_loop(mpc_b, model64, zt_b, card)
+    cpu_mpc = rec["condensed"].pop("cpu_mpc")
+    rec["path_a"].pop("cpu_mpc")
     torch.cuda.empty_cache()
 
     phase_clock.start("10-13")
@@ -4173,6 +4553,16 @@ def main():
     del tet_robot
     torch.cuda.empty_cache()
 
+    phase_clock.start("25")
+    # 25. scale-out on one card: the sharded select, rollout and MPC loops,
+    # then the entry points that run on committed data
+    rec["scaleout"] = dict(
+        select=phase_sharded_select(model64, model, x_near, card, dev),
+        rollout=phase_sharded_rollout(model, card, dev),
+        mpc=phase_sharded_mpc(model64, mpc, zt, cpu_mpc, card, dev),
+        entry=phase_entry_points(card, dev))
+    torch.cuda.empty_cache()
+
     phase_clock.start(None)
     rec["phase_s"] = phase_clock.seconds
     k2 = rec["tpwl_select"]["plan"]
@@ -4210,7 +4600,15 @@ def main():
              "tet_campaign": rec["tet"]["campaign"]["launches"],
              **{f"recipe_{k}": v["launches"]
                 for k, v in rec["recipes"].items()},
-             "ssm_learned": rec["ssm_learned"]["launches"]}
+             "ssm_learned": rec["ssm_learned"]["launches"],
+             "scaleout_rollout": rec["scaleout"]["rollout"]["launches"],
+             **{f"scaleout_{k}": rec["scaleout"]["mpc"][k]["launches"]
+                for k in ("unsharded", "mp", "dp", "dp_mp")},
+             "scaleout_f64": rec["scaleout"]["mpc"]["f64"]["launches"],
+             "entry_launch": rec["scaleout"]["entry"]["launch"]["launches"],
+             **{f"entry_serving_{k}": v["launches"] for k, v in
+                rec["scaleout"]["entry"]["serving"].items()},
+             "entry_noisy": rec["scaleout"]["entry"]["noisy"]["launches"]}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -4306,6 +4704,16 @@ def main():
         kernels.append(entry("tpwl_select", "pallas_tpwl.py:24",
                              f"recipe_{name}", r["select"]["max_abs_err"],
                              r["select_row"]))
+    # phase 25: kernel 2's part launch on the mp-only loop (mp = 4, the
+    # plan's shape) and kernel 1 at a dp part's B=256 on the dp=4 loop
+    r = rec["scaleout"]
+    kernels.append(entry(
+        "tpwl_select", "pallas_tpwl.py:24", "scaleout_mp",
+        r["select"]["distance_max_abs_err_f32"],
+        r["select"]["rows"][f"mp=4 B={N * B_MAIN} index_only=0"]))
+    kernels.append(entry("admm_batched", "pallas_admm.py:132", "scaleout_dp",
+                         r["mpc"]["dp"]["admm"]["max_abs_err"],
+                         r["mpc"]["dp"]["admm"]["row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -4325,7 +4733,9 @@ def main():
                           rec["recipes"]["koopman"]["admm"]["row"],
                           rec["ssm_learned"]["admm"]["row"],
                           rec["recipes"]["ilqr"]["select_row"],
-                          rec["recipes"]["open_loop"]["select_row"]]
+                          rec["recipes"]["open_loop"]["select_row"],
+                          *r["select"]["rows"].values(),
+                          r["mpc"]["dp"]["admm"]["row"]]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

@@ -262,6 +262,10 @@ class BatchMPC:
         Qk = t(Qk) if Qk is not None else m.H.T @ Qz @ m.H
         Rk = t(Rk) if Rk is not None else R
         self.K_pts, _ = dare(m.A_d, m.B_d, Qk, Rk)
+        # the dictionary split over a mesh's mp axis (parallel/mesh.py:
+        # sharded_batch_mpc_fused_mp): (PointShards, the mesh row's
+        # devices), and every nearest-point fetch goes through it
+        self._mp = None
         self._run = None
 
     # ------------------------------------------------------------------
@@ -276,10 +280,22 @@ class BatchMPC:
 
         return sh(x_plan), sh(u_plan)
 
+    def _select(self, x, index_only: int = 0, gains: bool = False):
+        """Nearest-point index of each state of x (B, n_x), the (A_d, B_d,
+        d_d) rows of states index_only.., and with `gains` the DARE gains of
+        states ..index_only (else None): one launch of the select kernel,
+        or in mp mode the sharded select over the mesh row's parts."""
+        if self._mp is not None:
+            shards, devices = self._mp
+            return shards.select(x, devices, index_only, gains)
+        idx, A, Bm, d = self.model.select(x, index_only)
+        return (idx, A, Bm, d,
+                self.K_pts[idx[:index_only]] if gains else None)
+
     def _gather_traj(self, x_k):
         """(A_d, B_d, d_d) at the first N states of each plan, (B, N, ...)."""
         Bsz, n = x_k.shape[0], self.n_x
-        _, A, Bm, d = self.model.select(x_k[:, :-1].reshape(-1, n))
+        _, A, Bm, d, _ = self._select(x_k[:, :-1].reshape(-1, n))
         return (A.reshape(Bsz, self.N, n, n),
                 Bm.reshape(Bsz, self.N, n, self.n_u),
                 d.reshape(Bsz, self.N, n))
@@ -348,11 +364,11 @@ class BatchMPC:
         Bsz = x_p.shape[0]
         mv = lambda M, v: (M @ v[..., None])[..., 0]
         x_bar, u_bar = x_plan[:, k], u_plan[:, k]
-        # one launch: the plan point's index (its DARE gain), rows at the
-        # plant state and the estimate only
-        idx, A, Bm, d = m.select(torch.cat([x_bar, x_p, ekf.x], dim=0),
-                                 index_only=Bsz)
-        u = u_bar + mv(self.K_pts[idx[:Bsz]], ekf.x - x_bar)
+        # one select: the plan point's DARE gain, rows at the plant state
+        # and the estimate only
+        _, A, Bm, d, K = self._select(torch.cat([x_bar, x_p, ekf.x], dim=0),
+                                      index_only=Bsz, gains=True)
+        u = u_bar + mv(K, ekf.x - x_bar)
         if self.u_clamp is not None:
             u = torch.clamp(u, self.u_clamp[0], self.u_clamp[1])
         p, e = slice(0, Bsz), slice(Bsz, 2 * Bsz)
@@ -366,6 +382,13 @@ class BatchMPC:
         ekf = ekf_correct(m, pred, y, self.V)
         z = x_next @ m.H.T + m.z_ref
         return x_next, ekf, z, u
+
+    def _draw_noise(self, n_windows: int, Bsz: int, generator=None):
+        """Standard normal measurement noise (n_windows, N_replan, B, n_y)
+        from `generator`, on its device (else the loop's)."""
+        gdev = generator.device if generator is not None else self.device
+        return torch.randn((int(n_windows), self.N_replan, Bsz, self.n_y),
+                           generator=generator, dtype=self.dtype, device=gdev)
 
     # ------------------------------------------------------------------
     def _build_loop(self, n_windows: int, noise_std: float, fused: bool):
@@ -381,10 +404,7 @@ class BatchMPC:
             Bsz = x_p.shape[0]
             if noise_std > 0:
                 if noise is None:
-                    gdev = generator.device if generator is not None else dev
-                    noise = torch.randn((n_win, N_rep, Bsz, self.n_y),
-                                        generator=generator, dtype=dt,
-                                        device=gdev)
+                    noise = self._draw_noise(n_win, Bsz, generator)
                 noise = noise_std * t(noise)
             eye = torch.eye(self.n_x, dtype=dt, device=dev)
             ekf = EKFState(x_e, eye.expand(Bsz, -1, -1))

@@ -8,6 +8,10 @@
 // d_d (n) rows. The first `index_only` states get their index and no rows:
 // row k of the outputs belongs to state index_only + k. The index is also
 // how the caller fetches any other per-point array (the DARE gains).
+// Where `dist_out` is not null, it also receives each state's distance to
+// the point chosen, the value the kernel compared: a caller that selects
+// over a dictionary split into parts (parallel/mesh.py) compares the parts'
+// minima by it and so gets the index of the whole dictionary bit for bit.
 //
 // It computes the same function by the exact form: the distances are taken
 // by direct differences, as TPWLModel.point_distances does
@@ -217,7 +221,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 1)
     const T* __restrict__ Bf, const T* __restrict__ df, int B, int P, int r,
     int nA, int nB, int nd, int index_only, T wq, T wv, int vec,
     int64_t* __restrict__ idx_out, T* __restrict__ A_out,
-    T* __restrict__ B_out, T* __restrict__ d_out) {
+    T* __restrict__ B_out, T* __restrict__ d_out, T* __restrict__ dist_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -351,7 +355,10 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 1)
     }
     // no finite distance (a NaN state): index 0, as torch.argmin gives
     sel[tid] = i < P ? i : 0;
-    if (rank == 0 && tid < ns) idx_out[b0 + tid] = sel[tid];
+    if (rank == 0 && tid < ns) {
+      idx_out[b0 + tid] = sel[tid];
+      if (dist_out != nullptr) dist_out[b0 + tid] = d;
+    }
   }
   // the peers' partials are read: let them leave once they have copied
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
@@ -376,7 +383,7 @@ template <typename T>
 int launch(const T* x, const T* qp, const T* vp, const T* Af, const T* Bf,
            const T* df, int B, int P, int r, int nA, int nB, int nd,
            int index_only, double wq, double wv, int64_t* idx, T* A_out,
-           T* B_out, T* d_out, void* stream) {
+           T* B_out, T* d_out, T* dist, void* stream) {
   constexpr int V = 16 / sizeof(T);
   const size_t smem = smem_bytes<T>(r);
   if (smem > kMaxSmem || P <= 0 || r <= 0 || index_only < 0 ||
@@ -421,7 +428,7 @@ int launch(const T* x, const T* qp, const T* vp, const T* Af, const T* Bf,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, tpwl_select_kernel<T>, x, qp, vp, Af, Bf,
                            df, B, P, r, nA, nB, nd, index_only, (T)wq,
-                           (T)wv, vec, idx, A_out, B_out, d_out);
+                           (T)wv, vec, idx, A_out, B_out, d_out, dist);
   const cudaError_t last = cudaGetLastError();  // clears a refused launch
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -438,9 +445,10 @@ int tpwl_select_f32(const float* x, const float* qp, const float* vp,
                     const float* Af, const float* Bf, const float* df, int B,
                     int P, int r, int nA, int nB, int nd, int index_only,
                     double wq, double wv, int64_t* idx, float* A_out,
-                    float* B_out, float* d_out, void* stream) {
+                    float* B_out, float* d_out, float* dist, void* stream) {
   return launch<float>(x, qp, vp, Af, Bf, df, B, P, r, nA, nB, nd,
-                       index_only, wq, wv, idx, A_out, B_out, d_out, stream);
+                       index_only, wq, wv, idx, A_out, B_out, d_out, dist,
+                       stream);
 }
 
 int tpwl_select_f64(const double* x, const double* qp, const double* vp,
@@ -448,9 +456,9 @@ int tpwl_select_f64(const double* x, const double* qp, const double* vp,
                     int B, int P, int r, int nA, int nB, int nd,
                     int index_only, double wq, double wv, int64_t* idx,
                     double* A_out, double* B_out, double* d_out,
-                    void* stream) {
+                    double* dist, void* stream) {
   return launch<double>(x, qp, vp, Af, Bf, df, B, P, r, nA, nB, nd,
-                        index_only, wq, wv, idx, A_out, B_out, d_out,
+                        index_only, wq, wv, idx, A_out, B_out, d_out, dist,
                         stream);
 }
 

@@ -483,6 +483,61 @@ def test_select_kernel_with_an_odd_coordinate_count(campaign_states, dtype):
         _assert_select_agrees(got, ref, near_tie, k)
 
 
+# the kernel's distance to the point it chose against the plain version's
+# (torch.cdist) at the same point: each sums the squared differences of r
+# coordinates in its own order, a few ulps of the distance apart
+SELECT_DIST_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("B,k", [(5119, 0), (3072, 1024), (1, 0)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_select_kernel_gives_the_distance_it_compared(campaign_states, B, k,
+                                                      dtype):
+    """distances=True: the same indices and rows as without it, one launch,
+    and each state's distance to its point within SELECT_DIST_TOL of the
+    plain version's, relative."""
+    model, x, near_tie = campaign_states
+    m = model.to(dtype=dtype)
+    dic = (m.q, m.v, m.A_d, m.B_d, m.d_d, 10.0, 1.0)
+    xs = x[:B].to(dtype)
+    launches = tpwl_select.launches
+    got = tpwl_select(xs, *dic, index_only=k, distances=True)
+    assert tpwl_select.launches == launches + 1
+    plain = tpwl_select(xs, *dic, index_only=k)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], plain))
+    ref = tpwl_select_plain(xs, *dic, k, distances=True)
+    _assert_select_agrees(got[:4], ref[:4], near_tie[:B], k)
+    same = got[0] == ref[0]
+    err = ((got[4] - ref[4]).abs() / ref[4])[same]
+    assert float(err.max()) <= SELECT_DIST_TOL[dtype]
+
+
+@pytest.mark.parametrize("mp", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sharded_select_is_the_kernels_select(campaign_states, mp, dtype):
+    """The dictionary split over mp parts of the card (parallel/mesh.py): at
+    the plan's B=5119, the tick's B=3072 with index_only=1024 and B=1, the
+    same indices as the unsharded kernel everywhere, near-ties included,
+    and the same rows bit for bit; mp index-only launches a select."""
+    from soft_robot_control_tpu_torch.parallel.mesh import (PointShards,
+                                                            make_mesh)
+
+    model, x, _ = campaign_states
+    m = model.to(dtype=dtype)
+    dev = torch.device("cuda")
+    mesh = make_mesh(1, mp, devices=[dev] * mp)
+    shards = PointShards(m, mesh)
+    dic = (m.q, m.v, m.A_d, m.B_d, m.d_d, 10.0, 1.0)
+    for B, k in ((5119, 0), (3072, 1024), (1, 0)):
+        xs = x[:B].to(dtype)
+        ref = tpwl_select(xs, *dic, index_only=k)
+        launches = tpwl_select.launches
+        got = shards.select(xs, mesh.devices[0], index_only=k)
+        assert tpwl_select.launches == launches + mp
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got[:4], ref))
+
+
 def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):
     """BatchMPC on a 64-point campaign subset: the card's f32 loop goes
     through both kernels and agrees with the f64 CPU loop."""

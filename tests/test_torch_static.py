@@ -12,6 +12,15 @@ import torch
 from torch_helpers import CAMPAIGN, REPO, SSM_ARTIFACTS
 
 FORBIDDEN = {"jax", "jaxlib", "soft_robot_control_tpu"}
+# The repository's scripts that run on committed data, and their twins in
+# the port (examples/ under soft_robot_control_tpu_torch/, but launch)
+ENTRY_TWINS = {"launch.py": "launch",
+               "examples/batched_serving.py": "batched_serving",
+               "examples/realtime_mpc_tpu.py": "realtime_mpc",
+               "examples/noisy_batch_mpc_campaign.py":
+                   "noisy_batch_mpc_campaign",
+               "examples/dubins_gusto.py": "dubins_gusto",
+               "examples/diamond_pipeline.py": "diamond_pipeline"}
 
 
 def _port_files():
@@ -91,6 +100,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/utils/marshal.py",
             "soft_robot_control_tpu_torch/utils/native.py",
             "soft_robot_control_tpu_torch/utils/gatekeeper.py",
+            "soft_robot_control_tpu_torch/parallel/mesh.py",
+            "soft_robot_control_tpu_torch/launch.py",
+            *(f"soft_robot_control_tpu_torch/examples/{f}.py"
+              for f in ENTRY_TWINS.values() if f != "launch"),
             "tools/stream_variants.py", "tools/pipeline_widths.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
@@ -158,6 +171,11 @@ def _entry_points():
                                                           make_box_mesh)
     from soft_robot_control_tpu_torch.models.ssm_learn import learn_ssm
     from soft_robot_control_tpu_torch.utils import geometry
+    from soft_robot_control_tpu_torch.parallel.mesh import make_mesh
+    from soft_robot_control_tpu_torch import launch
+    from soft_robot_control_tpu_torch.examples import (
+        batched_serving, diamond_pipeline, dubins_gusto,
+        noisy_batch_mpc_campaign, realtime_mpc)
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
@@ -242,6 +260,16 @@ def _entry_points():
             state_dim=2, SSM_order=1, ROM_order=1, z_ref=np.zeros(2)),
         "quat_identity": lambda: geometry.quat_identity(),
         "trs_to_matrix": lambda: geometry.trs_to_matrix([1.0, 2.0, 3.0]),
+        "make_mesh": lambda: make_mesh(1),
+        "launch": lambda: launch.main(["finger", "compute_pod_basis",
+                                       "--save-dir", os.devnull]),
+        "batched_serving": lambda: batched_serving.main(["--batch", "1"]),
+        "realtime_mpc": lambda: realtime_mpc.main(["--seconds", "0.1"]),
+        "noisy_batch_mpc_campaign": lambda: noisy_batch_mpc_campaign.main(
+            ["--out", os.devnull]),
+        "dubins_gusto": lambda: dubins_gusto.main([]),
+        "diamond_pipeline": lambda: diamond_pipeline.main(
+            ["--save-dir", os.devnull]),
     }
 
 
@@ -263,7 +291,10 @@ def _entry_points():
                                   "build_tet_fem", "TetFEM",
                                   "tet_fem_from_arrays", "DiamondTetRobot",
                                   "learn_ssm", "quat_identity",
-                                  "trs_to_matrix"])
+                                  "trs_to_matrix", "make_mesh", "launch",
+                                  "batched_serving", "realtime_mpc",
+                                  "noisy_batch_mpc_campaign",
+                                  "dubins_gusto", "diamond_pipeline"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -279,16 +310,18 @@ def _reexported_names(init_path):
 
 
 @pytest.mark.parametrize("sub", ["scp", "qp", "core", "lqr", "estimators",
-                                 "rom", "robots"])
+                                 "rom", "robots", "parallel"])
 def test_subpackages_reexport_the_jax_names(sub):
     """Each subpackage's re-exports are the JAX subpackage's: for example
-    `from soft_robot_control_tpu_torch.scp import GuSTO` works."""
+    `from soft_robot_control_tpu_torch.scp import GuSTO` works. (The JAX
+    `parallel/__init__.py` binds no names, so the port's binds none.)"""
     import importlib
 
     jax_pkg = importlib.import_module(f"soft_robot_control_tpu.{sub}")
     port = importlib.import_module(f"soft_robot_control_tpu_torch.{sub}")
     names = _reexported_names(jax_pkg.__file__)
-    assert names and all(hasattr(jax_pkg, n) for n in names)
+    assert names or sub == "parallel"
+    assert all(hasattr(jax_pkg, n) for n in names)
     assert [n for n in names if not hasattr(port, n)] == []
     assert _reexported_names(port.__file__) == names
 
@@ -353,3 +386,19 @@ def test_ported_files_have_the_jax_public_names():
             "soft_robot_control_tpu_torch." + rel[:-3].replace("/", "."))
         assert not any(hasattr(port, n) for n in names), rel
         assert names <= _public_names(os.path.join(jroot, rel)), rel
+
+
+@pytest.mark.parametrize("script", sorted(ENTRY_TWINS))
+def test_entry_scripts_have_twins_with_their_public_names(script):
+    """launch.py and the example scripts that need no reference mesh each
+    have a twin in the port with the script's public names (get_robot,
+    default_target, main)."""
+    import importlib
+
+    twin = ENTRY_TWINS[script]
+    mod = importlib.import_module(
+        "soft_robot_control_tpu_torch." + ("" if twin == "launch"
+                                           else "examples.") + twin)
+    names = _public_names(os.path.join(REPO, script))
+    assert "main" in names
+    assert [n for n in names if not hasattr(mod, n)] == []
