@@ -244,6 +244,7 @@ a card the script exits non-zero before printing any result.
 import contextlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -311,7 +312,7 @@ from soft_robot_control_tpu_torch.qp.blocked import make_kinv  # noqa: E402
 from soft_robot_control_tpu_torch.robots import DiamondRobot  # noqa: E402
 from soft_robot_control_tpu_torch.rom.pod import POD  # noqa: E402
 from soft_robot_control_tpu_torch.robots.robots import (  # noqa: E402
-    DiamondTetRobot)
+    DiamondTetRobot, TrunkTetRobot)
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto as gusto_mod  # noqa: E402,E501
@@ -590,6 +591,80 @@ SCALE_SCP_S, SCALE_RT_SECONDS, NOISY_REL = 1.5, 2.0, 0.1
 # mesh, and 900 mN move this stiffer stand-in's tip about 0.5 mm, beyond
 # which the learned polynomials extrapolate
 SSM_MPC_SCALE = 0.5
+
+# Phase 26: the five campaign scripts and the pruner on stand-in meshes at
+# the robots' widths (tests/tet_standins.py: the Diamond's 1,584-node box
+# of phase 23, a 700-node Trunk box), f32, in this order: Diamond TPWL,
+# baselines (on its dictionary), Diamond SSM (the committed accepted model
+# in --out: the box's fit fails the script's gates), Trunk TPWL, Trunk SSM
+# (the committed Trunk model in --out), then the pruner on the Trunk run's
+# dictionary. The Diamond SSM runs twice: the identification (--skip-mpc),
+# then the loop on the accepted model (--mpc-only), since on the box in
+# f32 learn_ssm finds no stable ridge and the script stops there (its
+# verdict is printed, as the gates' are). The cuts (argv of each run):
+# the Diamond TPWL at --quick's samples (8 of 40; phase 23's settings) and
+# a 1.5 s loop of 11 (--quick's 3); the baselines' loops 2.1 s of 11
+# (--quick's 3; scored from 2 s) with --quick's 16 Koopman samples of 60;
+# the Diamond SSM --quick, its loop 2.2 s of 11; the Trunk TPWL 3 LHS
+# samples of 40 (--quick's 6), one figure-8 segment of its six (150 mN,
+# 2 s period: the six are 40 s of data), loops of 1.05 s of 11 (iLQR's
+# horizon with them), with the dU leg and iLQR feedback gains at R = 1;
+# the Trunk SSM --quick, its loop 2 s of 6.
+CAMPAIGN_DIR = os.path.join(HERE, "build", "campaigns")
+CAMPAIGN_RUNS = (
+    ("diamond_tet_campaign", ["--samples", "8", "--tpwl-samples", "8",
+                              "--sim-duration", "1.5"]),
+    ("diamond_baselines_campaign", ["--sim-duration", "2.1",
+                                    "--koopman-samples", "16"]),
+    ("diamond_ssm_campaign", ["--quick", "--skip-mpc"],
+     ["--mpc-only", "--sim-duration", "2.2"]),
+    ("trunk_tet_campaign", ["--samples", "3", "--tpwl-samples", "3",
+                            "--traj", "150:2", "--sim-duration", "1.05",
+                            "--dU-leg", "25", "--ilqr-feedback-R", "1.0"]),
+    ("trunk_ssm_campaign", ["--quick", "--sim-duration", "2"]))
+# the profiled pass of each (busy share): shorter still, into a directory
+# of its own; the TPWL campaigns' run their loop alone on the main run's
+# dictionary (phase 23 profiles the collect stages' plant steps), the
+# Trunk SSM's the fit and the held-out runs on the main run's cached
+# identification data
+CAMPAIGN_PROFILED = {
+    "diamond_tet_campaign": ["--skip-collect", "--sim-duration", "1.04"],
+    "diamond_baselines_campaign": ["--sim-duration", "2.02",
+                                   "--koopman-samples", "4",
+                                   "--skip-rompc"],
+    "diamond_ssm_campaign": ["--mpc-only", "--sim-duration", "1.1"],
+    "trunk_tet_campaign": ["--skip-collect", "--skip-ilqr",
+                           "--sim-duration", "1.04"],
+    "trunk_ssm_campaign": ["--quick", "--skip-mpc"]}
+# the summaries' keys at these flags, the JAX scripts' (held to them on
+# the CPU by tests/test_torch_campaigns_*.py)
+CAMPAIGN_KEYS = {
+    "diamond_tet_campaign": {
+        "rom_dim", "tpwl_points", "heldout_rel_err", "collect_platform",
+        "scp_rmse_mm", "scp_rmse_unshifted_mm", "mpc_platform",
+        "scp_solve_ms_mean", "scp_plan_rejects", "mpc_replan_budget_ms"},
+    "diamond_baselines_campaign": {
+        "rompc", "koopman", "figure8_amp_mm", "sim_duration_s", "platform",
+        "qp_backend"},
+    "diamond_ssm_campaign": {
+        "tracking_rmse_mm", "tracking_rmse_unshifted_mm", "delay_s",
+        "figure8_amp_mm", "held_out_rel", "stable", "sim_duration_s",
+        "platform"},
+    "trunk_tet_campaign": {
+        "rom_dim", "tpwl_points", "heldout_rel_err", "heldout_traj_rel_err",
+        "collect_platform", "scp_rmse_mm", "mpc_platform",
+        "scp_plan_rejects", "scp_reject_reasons", "mpc_R", "mpc_dU",
+        "mpc_feedback_R", "mpc_replan_budget_ms", "scp_tip_span_mm",
+        "scp_solve_ms_mean", "dU_leg", "ilqr_rmse_mm", "ilqr_platform",
+        "ilqr_feedback_R"},
+    "trunk_ssm_campaign": {
+        "tracking_rmse_mm", "circle_amp_mm", "u_envelope_mN", "amp_mN",
+        "control_dt_s", "delay_s", "mpc_replan_budget_ms", "solve_ms_mean",
+        "platform"}}
+# the fit gates' own readings, NaN when the box's fit blows up (phase 24's
+# f64 fit read NaN): printed with the gates, not held finite
+CAMPAIGN_GATE_FIELDS = {"held_out_rel", "stable"}
+
 
 
 def check(ok, msg):
@@ -4375,6 +4450,313 @@ def phase_entry_points(card, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the campaign scripts and the pruner on stand-in meshes
+
+
+@contextlib.contextmanager
+def stage_clock(targets, recorders):
+    """Within the block, each call of module.name for (module, name) in
+    targets timed (wall seconds to a synchronize), with the kernel
+    launches it made and the span [i0, i1) it covers in each list of
+    `recorders`: a list of dicts, one a call."""
+    seen, saved = [], []
+
+    def wrap(real, name):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            before = read_counts()
+            spans = [len(r) for r in recorders]
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            after = read_counts()
+            seen.append(dict(stage=name, s=time.perf_counter() - t0,
+                             launches={w: after[w] - before[w] for w in after
+                                       if after[w] > before[w]},
+                             spans=[(i, len(r)) for i, r in
+                                    zip(spans, recorders)]))
+            return out
+        return timed
+
+    for mod, name in targets:
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+        setattr(mod, name, wrap(real, name))
+    try:
+        yield seen
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def campaign_targets(twin):
+    """The stages of a campaign twin: (module, function) pairs."""
+    from soft_robot_control_tpu_torch.models import ssm_learn
+    from soft_robot_control_tpu_torch.sim import closed_loop
+
+    if twin.__name__.endswith("ssm_campaign"):
+        return [(twin, "sysid_data"), (ssm_learn, "learn_ssm"),
+                (twin, "held_out_rel"), (closed_loop, "run_closed_loop")]
+    return [(recipes, n) for n in (
+        "collect_pod_data", "compute_pod_basis", "collect_tpwl_data",
+        "tpwl_rollout_check", "run_scp", "run_ilqr", "run_rompc",
+        "run_koopman")]
+
+
+def run_twin(twin, argv):
+    """twin.main(argv): (summary, the gates' failures, where the
+    quarantined artifacts went). Caught: the gates' own failure, and
+    learn_ssm's verdict that no ridge candidate fits the data stably (the
+    script stops there, as the JAX script does)."""
+    from soft_robot_control_tpu_torch.examples.campaign_gates import (
+        GatesFailed)
+
+    try:
+        return twin.main(argv), [], {}
+    except GatesFailed as e:
+        return e.summary, e.fails, e.moved
+    except RuntimeError as e:
+        if "unstable dynamics fit" not in str(e):
+            raise
+        return None, [f"learn_ssm: {e}"], {}
+
+
+def restore_quarantined(moved):
+    """Copy a failed run's quarantined artifacts back, for the next run."""
+    import shutil
+
+    for path, dest in moved.items():
+        shutil.copy(dest, path)
+
+
+def numbers(obj):
+    """Every number in a summary (nested dicts and lists), by key path."""
+    if isinstance(obj, dict):
+        return {f"{k}.{p}" if p else k: v for k, d in obj.items()
+                for p, v in numbers(d).items()}
+    if isinstance(obj, (list, tuple)):
+        return {f"{i}.{p}" if p else str(i): v for i, d in enumerate(obj)
+                for p, v in numbers(d).items()}
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return {"": obj}
+    return {}
+
+
+def campaign_twin(name, argvs, out_dir, card):
+    """One campaign twin on the stand-ins in f32 on the card: the run
+    timed stage by stage with its kernel launches; every launch of kernels
+    1 and 2 recorded, the first of each shape (and table) held to its
+    plain version; the summary's keys against the JAX script's and its
+    numbers finite; the gates' verdict printed; a profiled pass at
+    CAMPAIGN_PROFILED's flags for the device's busy share."""
+    import importlib
+
+    twin = importlib.import_module(
+        f"soft_robot_control_tpu_torch.examples.{name}")
+    argvs = [list(a) + ["--out", out_dir] for a in argvs]
+    reset_counts()
+    t0 = time.perf_counter()
+    summary, fails, moved = None, [], {}
+    with recording(batch_mpc, "admm_batched") as qp, recording(
+            gusto_jit, "admm_batched") as qp_jit, recording(
+            select_ops, "_launch", clone=1) as sel, results_of(
+            recipes, "load_tpwl") as models, stage_clock(
+            campaign_targets(twin), (qp, qp_jit, sel)) as stages:
+        for argv in argvs:
+            s, f, m = run_twin(twin, argv)
+            summary = s if s is not None else summary
+            fails, moved = fails + f, {**moved, **m}
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tag = f"campaign {name}"
+    argv = " + ".join(" ".join(a) for a in argvs)
+    print(f"[{tag}] {wall:.2f} s, argv {argv}; stages (s, "
+          "launches): " + "; ".join(
+              f"{st['stage']} {st['s']:.3f} {st['launches']}"
+              for st in stages) + f"; all launches {counts} [{card}]")
+    got = set(summary or {})
+    want = CAMPAIGN_KEYS[name]
+    bad = {k: v for k, v in numbers(summary).items()
+           if k.split(".")[0] not in CAMPAIGN_GATE_FIELDS
+           and not np.isfinite(v)}
+    print(f"[{tag}] summary keys {'are' if got == want else 'are not'} the "
+          f"JAX script's; non-finite fields {sorted(bad)}; fit-gate fields "
+          + str({k: summary.get(k) for k in CAMPAIGN_GATE_FIELDS
+                 if k in got}) + f"; summary {summary}")
+    print(f"[{tag}] gates (and the fit's verdict): "
+          f"{'hold' if not fails else 'fail'}"
+          + ("" if not fails else f" ({len(fails)}: {fails}); the run's "
+             f"{len(moved)} artifacts quarantined under {out_dir}/rejected"))
+    check(got == want, f"{tag}: summary keys {sorted(got ^ want)} differ")
+    check(not bad, f"{tag}: non-finite fields {bad}")
+    check(len(sel) == counts["tpwl_select"]
+          and len(qp) + len(qp_jit) == counts["admm_batched"],
+          f"{tag}: recorded launches are not the counted ones")
+    out = dict(wall_s=wall, stages=stages, launches=counts,
+               summary=summary, gates=fails, quarantined=sorted(moved))
+    restore_quarantined(moved)   # for the profiled pass and the next run
+    # kernel 2 held at each shape and table, timed at B=1 and at the most
+    # frequent shape of more than one state
+    if sel:
+        tables = {id(m.A_c) for m in models if m.A_c is not None}
+        held, first, shapes = {}, {}, {}
+        for a in sel:
+            key = (a[0].shape[0], "A_c" if id(a[3]) in tables else "A_d")
+            shapes[key] = shapes.get(key, 0) + 1
+            first.setdefault(key, a)
+        for key, a in first.items():
+            t = f"{tag} f32 {key[0]} states on {key[1]}"
+            held[t] = hold_select(t, a[:8], a[8])
+        out["select"] = dict(held=held, shapes={
+            f"B={b} on {t}": n for (b, t), n in shapes.items()},
+            max_abs_err=max(h["max_abs_err"] for h in held.values()))
+        for label, pick in (("select_row", lambda k: k[0] == 1),
+                            ("select_row_query", lambda k: k[0] > 1)):
+            keys = [k for k in shapes if pick(k)]
+            if keys:
+                a = first[max(keys, key=shapes.get)]
+                out[label] = select_row(f"{tag} {label}",
+                                        (a[0],) + tuple(a[1:8]), a[8], card)
+                out[label]["launches"] = counts["tpwl_select"]
+        print(f"[{tag}] kernel 2 launches by shape {out['select']['shapes']}"
+              f" [{card}]")
+    # kernel 1 held at each shape, by stage, timed at the most frequent
+    calls = qp + qp_jit
+    if calls:
+        out["admm"] = {}
+        for st in stages:
+            (a0, a1), (b0, b1) = st["spans"][0], st["spans"][1]
+            part = qp[a0:a1] + qp_jit[b0:b1]
+            if part:
+                out["admm"][st["stage"]] = hold_recipe_admm(
+                    f"{tag} {st['stage']}", part, card)
+    # the profiled pass: the device's busy share of its wall time
+    prof_dir = out_dir + "_profiled"
+    if name == "diamond_baselines_campaign":
+        os.makedirs(prof_dir, exist_ok=True)
+        import shutil
+        shutil.copy(os.path.join(out_dir, "tpwl_model_snapshots.pkl"),
+                    prof_dir)
+    if name in ("diamond_tet_campaign", "trunk_tet_campaign"):
+        os.makedirs(prof_dir, exist_ok=True)
+        import shutil
+        for f in ("pod_model.pkl", "tpwl_model_snapshots.pkl"):
+            shutil.copy(os.path.join(out_dir, f), prof_dir)
+    if name.endswith("ssm_campaign"):
+        os.makedirs(prof_dir, exist_ok=True)
+        import shutil
+        shutil.copy(SSM_ARTIFACTS[name.split("_")[0]], prof_dir)
+        if name == "trunk_ssm_campaign":
+            shutil.copy(os.path.join(out_dir, "sysid_data.pkl"), prof_dir)
+    t0 = time.perf_counter()
+    device = argvs[0][argvs[0].index("--device") + 1]
+    ops, summary_s = device_events(lambda: restore_quarantined(run_twin(
+        twin, CAMPAIGN_PROFILED[name] + ["--out", prof_dir, "--device",
+                                         device])[2]))
+    prof_wall = time.perf_counter() - t0 - summary_s
+    dev_ms = sum(ms for ms, _ in ops.values())
+    out["profile"] = dict(wall_s=prof_wall, device_ms=dev_ms,
+                          device_busy_share=dev_ms / (1e3 * prof_wall),
+                          device_ops=sum(n for _, n in ops.values()),
+                          argv=CAMPAIGN_PROFILED[name])
+    print(f"[{tag}] profiled pass ({' '.join(CAMPAIGN_PROFILED[name])}): "
+          f"{prof_wall:.2f} s, device busy {dev_ms:.1f} ms (share "
+          f"{out['profile']['device_busy_share']:.4f}) in "
+          f"{out['profile']['device_ops']} device operations (summary "
+          f"{summary_s:.1f} s) [{card}]")
+    return out
+
+
+def against_f64(tag, pairs):
+    """Print f32 numbers beside phase 23-24's f64 ones at the same
+    settings, with their relative difference."""
+    for label, got, ref in pairs:
+        if ref is None or got is None:
+            continue
+        d = abs(got - ref) / max(abs(ref), 1e-300)
+        print(f"[{tag}] {label}: f32 {got:.6g}, f64 (phases 23-24) "
+              f"{ref:.6g}, relative difference {d:.3e}")
+
+
+def phase_campaigns(rec, card, dev):
+    """Phase 26: the five campaign twins through their main() on the
+    stand-ins (tests/tet_standins.py), CAMPAIGN_RUNS in order, then the
+    pruner on the Trunk run's dictionary (--check on the card). The
+    stand-ins go through REFERENCE_MESH_DIR with PLANT_CACHE_DIR in the
+    same temporary directory, so no real cache is touched; the Diamond's
+    box is phase 23's, the Trunk's 700 nodes. The gates' verdicts are
+    printed and recorded, not required (the boxes are not the robots);
+    a failed run's quarantined artifacts are copied back for its profiled
+    pass and the next run. Prints each twin's stage times, busy share,
+    launches and holds."""
+    import shutil
+
+    from soft_robot_control_tpu_torch.tools import prune_tpwl_dict
+    from tet_standins import (DIAMOND_BOX, DIAMOND_NODES, TRUNK_BOX,
+                              TRUNK_NODES, fits_the_scene, standins)
+
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    out = {}
+    with standins(os.path.join(CAMPAIGN_DIR, "standins"), [fem_tet],
+                  DIAMOND_BOX, TRUNK_BOX) as nodes:
+        print(f"[campaigns] stand-ins: {nodes} nodes (Diamond's box of "
+              f"phase 23, Trunk's of its width) [{card}]")
+        for cls, named in ((DiamondTetRobot, DIAMOND_NODES),
+                           (TrunkTetRobot, TRUNK_NODES)):
+            p = cls(device=dev, dtype=torch.float32).plant
+            n_fixed, cols, ok = fits_the_scene(p, named)
+            print(f"[campaigns] {cls.__name__}: {p.n_nodes} nodes, "
+                  f"{n_fixed} fixed, cable columns' net force "
+                  f"{cols.round(6)} [{card}]")
+            check(ok, f"campaigns: the {cls.__name__} stand-in does not "
+                  "fit the scene")
+        for name, *argvs in CAMPAIGN_RUNS:
+            d = os.path.join(CAMPAIGN_DIR, name)
+            if name.endswith("ssm_campaign"):
+                os.makedirs(d, exist_ok=True)
+                shutil.copy(SSM_ARTIFACTS[name.split("_")[0]], d)
+            if name == "diamond_baselines_campaign":
+                os.makedirs(d, exist_ok=True)
+                shutil.copy(os.path.join(CAMPAIGN_DIR, "diamond_tet_campaign",
+                                         "tpwl_model_snapshots.pkl"), d)
+            out[name] = campaign_twin(
+                name, [a + ["--device", dev.type] for a in argvs], d, card)
+        src = os.path.join(CAMPAIGN_DIR, "trunk_tet_campaign",
+                           "tpwl_model_snapshots.pkl")
+        with open(src, "rb") as f:
+            P = int(np.asarray(pickle.load(f)["q"]).shape[0])
+        reset_counts()
+        t0 = time.perf_counter()
+        _, kept, tau = prune_tpwl_dict.main(
+            ["--dict", src, "--target", str(max(2, P // 2)), "--check",
+             "--out", os.path.join(CAMPAIGN_DIR, "pruned.pkl"), "--device",
+             dev.type])
+        out["prune"] = dict(points=P, kept=len(kept), tau=tau,
+                            s=time.perf_counter() - t0,
+                            launches=read_counts())
+        print(f"[campaigns] pruner: P {P} -> {len(kept)} (tau {tau:.4g}), "
+              f"--check on the card, {out['prune']['s']:.2f} s, launches "
+              f"{out['prune']['launches']} [{card}]")
+        check(out["prune"]["launches"]["tpwl_select"] > 0,
+              "campaigns: the pruner's check launched no kernel 2")
+    # beside phases 23-24's f64 runs at the same settings
+    tet, rcp = rec.get("tet", {}).get("campaign", {}), rec.get("recipes", {})
+    s = out["diamond_tet_campaign"]["summary"]
+    against_f64("campaigns diamond_tet_campaign", [
+        ("tpwl_points", s["tpwl_points"], tet.get("points")),
+        ("heldout_rel_err", s["heldout_rel_err"],
+         tet.get("rollout_rel_err"))])
+    print(f"[campaigns] the baselines (2.1 s loops) run on the f32 "
+          f"dictionary of this phase (P={s['tpwl_points']}); phase 24's "
+          f"recipes (3 s) on phase 23's f64 one: RMSE ROMPC "
+          f"{out['diamond_baselines_campaign']['summary']['rompc']} / "
+          f"{rcp.get('rompc', {}).get('tracking_rmse_mm')}, Koopman "
+          f"{out['diamond_baselines_campaign']['summary']['koopman']} / "
+          f"{rcp.get('koopman', {}).get('tracking_rmse_mm')} [{card}]")
+    return out
+
+
 class PhaseClock:
     """Wall seconds of each phase (or group of short phases), printed as each ends, so that
     a run's time against its limit can be read by phase."""
@@ -4563,6 +4945,11 @@ def main():
         entry=phase_entry_points(card, dev))
     torch.cuda.empty_cache()
 
+    phase_clock.start("26")
+    # 26. the campaign scripts and the pruner on stand-in meshes, f32
+    rec["campaigns"] = phase_campaigns(rec, card, dev)
+    torch.cuda.empty_cache()
+
     phase_clock.start(None)
     rec["phase_s"] = phase_clock.seconds
     k2 = rec["tpwl_select"]["plan"]
@@ -4608,7 +4995,9 @@ def main():
              "entry_launch": rec["scaleout"]["entry"]["launch"]["launches"],
              **{f"entry_serving_{k}": v["launches"] for k, v in
                 rec["scaleout"]["entry"]["serving"].items()},
-             "entry_noisy": rec["scaleout"]["entry"]["noisy"]["launches"]}
+             "entry_noisy": rec["scaleout"]["entry"]["noisy"]["launches"],
+             **{f"campaign_{k}": v["launches"]
+                for k, v in rec["campaigns"].items()}}
     src = "soft_robot_control_tpu_torch/csrc/"
     ref = "soft_robot_control_tpu/ops/"
 
@@ -4714,6 +5103,20 @@ def main():
     kernels.append(entry("admm_batched", "pallas_admm.py:132", "scaleout_dp",
                          r["mpc"]["dp"]["admm"]["max_abs_err"],
                          r["mpc"]["dp"]["admm"]["row"]))
+    # phase 26: kernel 2 on the Trunk stand-in's dictionary at a rollout
+    # step (B=1) and at its GuSTO queries' most frequent shape; kernel 1
+    # at the baselines' ROMPC and Koopman in f32 (the SSM campaigns' GuSTO
+    # solves its QP in plain PyTorch, as the JAX package's in XLA)
+    r = rec["campaigns"]["trunk_tet_campaign"]
+    for row in ("select_row", "select_row_query"):
+        kernels.append(entry("tpwl_select", "pallas_tpwl.py:24",
+                             "campaign_trunk_tet_campaign",
+                             r["select"]["max_abs_err"], r[row]))
+    for name, stage in (("diamond_baselines_campaign", "run_rompc"),
+                        ("diamond_baselines_campaign", "run_koopman")):
+        a = rec["campaigns"][name]["admm"][stage]
+        kernels.append(entry("admm_batched", "pallas_admm.py:132",
+                             f"campaign_{name}", a["max_abs_err"], a["row"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     rec["kernels"] = kernels
@@ -4734,8 +5137,13 @@ def main():
                           rec["ssm_learned"]["admm"]["row"],
                           rec["recipes"]["ilqr"]["select_row"],
                           rec["recipes"]["open_loop"]["select_row"],
-                          *r["select"]["rows"].values(),
-                          r["mpc"]["dp"]["admm"]["row"]]
+                          *rec["scaleout"]["select"]["rows"].values(),
+                          rec["scaleout"]["mpc"]["dp"]["admm"]["row"],
+                          *(rec["campaigns"]["trunk_tet_campaign"][k]
+                            for k in ("select_row", "select_row_query")),
+                          *(rec["campaigns"]["diamond_baselines_campaign"][
+                              "admm"][st]["row"]
+                            for st in ("run_rompc", "run_koopman"))]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

@@ -121,7 +121,10 @@ def _polish(P, q, A, l, u, y, delta=1e-7, refine_steps: int = 3):
     Guess the active set from the ADMM duals (y<0 -> lower active,
     y>0 -> upper active), then solve the equality-constrained KKT with the
     inactive multipliers pinned to zero, via a masked Schur complement and
-    iterative refinement."""
+    iterative refinement. A singular system (active rows that are
+    dependent, their regularization lost in the rounding) gives a
+    non-finite candidate, which the caller's residual test rejects, as
+    JAX's LU solve does; it does not raise."""
     n = P.shape[0]
     low_active = y < 0
     up_active = y > 0
@@ -132,14 +135,14 @@ def _polish(P, q, A, l, u, y, delta=1e-7, refine_steps: int = 3):
     mask = ((low_active | up_active) & finite).to(P.dtype)
     b = torch.where(finite, b, zero)
 
-    Hc = torch.linalg.cholesky(
-        P + delta * torch.eye(n, dtype=P.dtype, device=P.device))
+    Hc = torch.linalg.cholesky_ex(
+        P + delta * torch.eye(n, dtype=P.dtype, device=P.device))[0]
     solve_H = lambda r: torch.cholesky_solve(r.reshape(n, -1), Hc).reshape(
         r.shape)
     G = A @ solve_H(A.T)                                 # A H^-1 A' (m, m)
     M = mask[:, None] * mask[None, :] * G + torch.diag(
         1.0 - mask + delta * mask)
-    nu = torch.linalg.solve(M, mask * (A @ solve_H(-q) - b))
+    nu = torch.linalg.solve_ex(M, mask * (A @ solve_H(-q) - b))[0]
     x_p = solve_H(-q - A.T @ nu)
 
     # iterative refinement on the unregularized masked KKT; corrections are
@@ -149,7 +152,7 @@ def _polish(P, q, A, l, u, y, delta=1e-7, refine_steps: int = 3):
         r1 = -q - P @ x_p - A.T @ (mask * nu)
         r2 = mask * (b - A @ x_p)
         dx0 = solve_H(r1)
-        dnu = torch.linalg.solve(M, mask * (A @ dx0) - r2)
+        dnu = torch.linalg.solve_ex(M, mask * (A @ dx0) - r2)[0]
         x_p = x_p + dx0 - solve_H(A.T @ (mask * dnu))
         nu = nu + dnu
     return x_p, mask * nu, torch.clamp(A @ x_p, l, u)

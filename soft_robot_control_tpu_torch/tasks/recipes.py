@@ -150,14 +150,17 @@ def collect_tpwl_data(robot, save_dir: str, threshold: float = 0.5,
 
 
 def load_tpwl(robot, save_dir: str, discr_method: str = "be") -> TPWLModel:
-    """The saved dictionary on the robot's device, with the robot's
-    measurement and output models."""
+    """The saved dictionary on the robot's device in the plant's dtype,
+    with the robot's measurement and output models. (A float32 plant's
+    dictionary is float32 and its POD basis float64: JAX computes both in
+    float32 on an accelerator, and promotes on the CPU.)"""
     return from_tpwl_dict(os.path.join(save_dir, "tpwl_model_snapshots.pkl"),
                           params={"dist_weights": dict(DIST_WEIGHTS)},
                           Cf=robot.get_measurement_model(),
                           Hf=robot.get_output_model(),
                           discr_method=discr_method,
-                          device=robot.plant.device)
+                          device=robot.plant.device).to(
+                              dtype=robot.plant.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -348,9 +351,11 @@ def run_rompc(robot, save_dir: str, t_target, z_target, N=20, N_replan=4,
     # targets shifted into the ROM's z coordinates
     z_shift = np.asarray(z_target) - to_numpy(lin.z_ref)
     target = Target(t=t_target, z=z_shift)
+    # the QP in the plant's dtype (float32 on the card, as JAX's on an
+    # accelerator; the adapters default to float64)
     svc = LinearMPCService(lin, N, dt, QuadraticCost(Q=Qz, R=R, Qf=10.0 * Qz),
                            target, locp_backend=locp_backend,
-                           qp_backend=qp_backend)
+                           qp_backend=qp_backend, dtype=robot.plant.dtype)
     nx, ny = lin.state_dim, to_numpy(lin.C).shape[0]
     ctrl = ROMPC(lin, QuadraticCost(Q=H.T @ Qz @ H, R=R),
                  QuadraticCost(Q=np.eye(nx), R=np.eye(ny)), dt,
@@ -430,7 +435,7 @@ def run_koopman(robot, save_dir: str, t_target, z_target_scaled, delay_embed=2,
     svc = LinearMPCService(km, N, dt, QuadraticCost(Q=Qz, R=R, Qf=5 * Qz),
                            target, U=U, dU=dU, max_iter=2000,
                            locp_backend=locp_backend, qp_backend=qp_backend,
-                           qp_iters=600, rho_stages=6)
+                           qp_iters=600, rho_stages=6, dtype=robot.plant.dtype)
     ctrl = KoopmanMPC(km, delay=delay, wait=True, solver_service=svc,
                       rollout_horizon=rollout_horizon)
     # the Koopman model lives in output coordinates: the controller is fed

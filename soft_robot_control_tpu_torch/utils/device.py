@@ -17,6 +17,12 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def run_dtype(dev: torch.device) -> torch.dtype:
+    """The campaign scripts' precision on `dev`: float64 on the CPU,
+    float32 on the card (the JAX scripts enable x64 on the CPU only)."""
+    return torch.float64 if dev.type == "cpu" else torch.float32
+
+
 def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     """A tensor of `a` (tensor, numpy array or nested list) with the given
     dtype and device; numpy input is copied, so read-only arrays are safe."""

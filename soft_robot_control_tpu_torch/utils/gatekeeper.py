@@ -52,28 +52,41 @@ def enforce_gates(test_paths, artifacts, out_dir, k=None):
 
     print("ARTIFACT GATES FAILED — quarantining this run's artifacts",
           flush=True)
+    quarantine(artifacts, out_dir)
+    return rc
+
+
+def quarantine(artifacts, out_dir):
+    """Move each existing file of `artifacts` to
+    `<out_dir>/rejected/<ts>-<name>` and, when git tracks it, restore its
+    last committed contents. Returns {path: where it went}."""
     qdir = os.path.join(out_dir, "rejected")
     os.makedirs(qdir, exist_ok=True)
     ts = time.strftime("%Y%m%d-%H%M%S")
     repo = _repo_root(out_dir)
+    moved = {}
     for path in artifacts:
         if not os.path.exists(path):
             continue
         dest = os.path.join(qdir, f"{ts}-{os.path.basename(path)}")
         shutil.move(path, dest)
+        moved[path] = dest
         print(f"  quarantined {path} -> {dest}", flush=True)
         if repo and _is_tracked(repo, path):
             subprocess.call(["git", "checkout", "--",
                              os.path.relpath(path, repo)], cwd=repo)
             print(f"  restored last committed {os.path.basename(path)}",
                   flush=True)
-    return rc
+    return moved
 
 
 def _repo_root(start):
-    out = subprocess.run(["git", "rev-parse", "--show-toplevel"],
-                         cwd=os.path.dirname(os.path.abspath(start)) or ".",
-                         capture_output=True, text=True)
+    try:
+        out = subprocess.run(["git", "rev-parse", "--show-toplevel"],
+                             cwd=os.path.dirname(os.path.abspath(start))
+                             or ".", capture_output=True, text=True)
+    except OSError:  # no git on this machine: nothing is tracked
+        return None
     return out.stdout.strip() if out.returncode == 0 else None
 
 

@@ -98,3 +98,21 @@ def test_rejects_what_it_does_not_take():
         solve_qp_dense(P, q, A, l, u, x_solver="lu")
     with pytest.raises(ValueError, match="constraint row"):
         solve_qp_dense(P, q, A[:0], l[:0], u[:0])
+
+
+def test_singular_polish_is_rejected_as_jax():
+    """Two equal rows both active in float32: the polish step's masked
+    system is singular once its 1e-7 regularization is lost in the
+    rounding (a float32 SSM closed loop on the card met one). The port
+    rejects the non-finite candidate as the JAX package's LU solve does,
+    instead of raising, and returns JAX's solution."""
+    qp = (np.eye(2), np.array([-200.0, 0.0]),
+          np.array([[100.0, 0.0], [100.0, 0.0]]), np.array([-1e3, -1e3]),
+          np.array([100.0, 100.0]))
+    kw = dict(eps_abs=1e-5, eps_rel=1e-5)
+    ref = jax_solve(*[jnp.asarray(a, jnp.float32) for a in qp], **kw)
+    got = solve_qp_dense(*[torch.as_tensor(a, dtype=torch.float32)
+                           for a in qp], **kw)
+    assert got.solved and bool(ref.solved)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), atol=1e-5)
+    np.testing.assert_allclose(got.y.numpy(), np.asarray(ref.y), atol=1e-5)

@@ -12,26 +12,38 @@ import torch
 from torch_helpers import CAMPAIGN, REPO, SSM_ARTIFACTS
 
 FORBIDDEN = {"jax", "jaxlib", "soft_robot_control_tpu"}
-# The repository's scripts that run on committed data, and their twins in
-# the port (examples/ under soft_robot_control_tpu_torch/, but launch)
+# The repository's scripts, and their twins in the port (modules under
+# soft_robot_control_tpu_torch/)
 ENTRY_TWINS = {"launch.py": "launch",
-               "examples/batched_serving.py": "batched_serving",
-               "examples/realtime_mpc_tpu.py": "realtime_mpc",
+               "examples/batched_serving.py": "examples.batched_serving",
+               "examples/realtime_mpc_tpu.py": "examples.realtime_mpc",
                "examples/noisy_batch_mpc_campaign.py":
-                   "noisy_batch_mpc_campaign",
-               "examples/dubins_gusto.py": "dubins_gusto",
-               "examples/diamond_pipeline.py": "diamond_pipeline"}
+                   "examples.noisy_batch_mpc_campaign",
+               "examples/dubins_gusto.py": "examples.dubins_gusto",
+               "examples/diamond_pipeline.py": "examples.diamond_pipeline",
+               "examples/diamond_tet_campaign.py":
+                   "examples.diamond_tet_campaign",
+               "examples/diamond_baselines_campaign.py":
+                   "examples.diamond_baselines_campaign",
+               "examples/diamond_ssm_campaign.py":
+                   "examples.diamond_ssm_campaign",
+               "examples/trunk_tet_campaign.py":
+                   "examples.trunk_tet_campaign",
+               "examples/trunk_ssm_campaign.py":
+                   "examples.trunk_ssm_campaign",
+               "tools/prune_tpwl_dict.py": "tools.prune_tpwl_dict"}
 
 
 def _port_files():
     """The package, chip_smoke.py, cluster_probe.py, the port's tools
     (tools/stream_variants.py, tools/pipeline_widths.py), and the card
-    tests with their helpers, which run on a machine without JAX."""
+    tests with their helpers and the stand-in meshes, which run on a
+    machine without JAX."""
     root = os.path.join(REPO, "soft_robot_control_tpu_torch")
     files = [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "cluster_probe.py", "tools/stream_variants.py",
         "tools/pipeline_widths.py", "tests/test_torch_kernels_cuda.py",
-        "tests/torch_helpers.py")]
+        "tests/torch_helpers.py", "tests/tet_standins.py")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -102,8 +114,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "soft_robot_control_tpu_torch/utils/gatekeeper.py",
             "soft_robot_control_tpu_torch/parallel/mesh.py",
             "soft_robot_control_tpu_torch/launch.py",
-            *(f"soft_robot_control_tpu_torch/examples/{f}.py"
-              for f in ENTRY_TWINS.values() if f != "launch"),
+            *(f"soft_robot_control_tpu_torch/{f.replace('.', '/')}.py"
+              for f in ENTRY_TWINS.values()),
+            "soft_robot_control_tpu_torch/examples/campaign_gates.py",
+            "tests/tet_standins.py",
             "tools/stream_variants.py", "tools/pipeline_widths.py"} <= names
     bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}
@@ -174,8 +188,11 @@ def _entry_points():
     from soft_robot_control_tpu_torch.parallel.mesh import make_mesh
     from soft_robot_control_tpu_torch import launch
     from soft_robot_control_tpu_torch.examples import (
-        batched_serving, diamond_pipeline, dubins_gusto,
-        noisy_batch_mpc_campaign, realtime_mpc)
+        batched_serving, diamond_baselines_campaign, diamond_pipeline,
+        diamond_ssm_campaign, diamond_tet_campaign, dubins_gusto,
+        noisy_batch_mpc_campaign, realtime_mpc, trunk_ssm_campaign,
+        trunk_tet_campaign)
+    from soft_robot_control_tpu_torch.tools import prune_tpwl_dict
 
     rom = {"U": np.eye(4, 2), "q_ref": np.zeros(4), "v_ref": np.zeros(4)}
 
@@ -270,7 +287,27 @@ def _entry_points():
         "dubins_gusto": lambda: dubins_gusto.main([]),
         "diamond_pipeline": lambda: diamond_pipeline.main(
             ["--save-dir", os.devnull]),
+        **{mod.__name__.rsplit(".", 1)[1]: (
+            lambda mod=mod: mod.main(["--out", os.devnull]))
+           for mod in (diamond_tet_campaign, diamond_baselines_campaign,
+                       diamond_ssm_campaign, trunk_tet_campaign,
+                       trunk_ssm_campaign)},
+        "prune_tpwl_dict": lambda: _prune_tiny_dictionary(prune_tpwl_dict),
     }
+
+
+def _prune_tiny_dictionary(tool):
+    """The pruner's --check on a 4-point dictionary in a temporary
+    directory."""
+    import pickle
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tiny.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"q": np.arange(8.0).reshape(4, 2),
+                         "v": np.zeros((4, 2)), "info": {}}, f)
+        tool.main(["--dict", path, "--target", "2", "--check"])
 
 
 @pytest.mark.parametrize("name", ["from_tpwl_dict", "POD", "CondensedSpec",
@@ -294,7 +331,12 @@ def _entry_points():
                                   "trs_to_matrix", "make_mesh", "launch",
                                   "batched_serving", "realtime_mpc",
                                   "noisy_batch_mpc_campaign",
-                                  "dubins_gusto", "diamond_pipeline"])
+                                  "dubins_gusto", "diamond_pipeline",
+                                  "diamond_tet_campaign",
+                                  "diamond_baselines_campaign",
+                                  "diamond_ssm_campaign",
+                                  "trunk_tet_campaign",
+                                  "trunk_ssm_campaign", "prune_tpwl_dict"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -390,15 +432,13 @@ def test_ported_files_have_the_jax_public_names():
 
 @pytest.mark.parametrize("script", sorted(ENTRY_TWINS))
 def test_entry_scripts_have_twins_with_their_public_names(script):
-    """launch.py and the example scripts that need no reference mesh each
+    """launch.py, the example scripts and tools/prune_tpwl_dict.py each
     have a twin in the port with the script's public names (get_robot,
-    default_target, main)."""
+    default_target, tip_qv_output, run_mpc, greedy_keep, prune, main)."""
     import importlib
 
-    twin = ENTRY_TWINS[script]
     mod = importlib.import_module(
-        "soft_robot_control_tpu_torch." + ("" if twin == "launch"
-                                           else "examples.") + twin)
+        "soft_robot_control_tpu_torch." + ENTRY_TWINS[script])
     names = _public_names(os.path.join(REPO, script))
     assert "main" in names
     assert [n for n in names if not hasattr(mod, n)] == []
