@@ -102,8 +102,9 @@ the tolerances stated below.
    iteration; kernel 2 counted and held to its plain version on the first
    call of each shape and table, and timed at the linearization's 200
    states; f32 and f64 on the card, f64 on the CPU (the campaign's loop
-   there only its first LOCP: the whole loop takes minutes); the
-   campaign's runs cut to STAGE_GUSTO_SCP_ITERS SCP iterations;
+   there only its first LOCP: the whole loop takes minutes); every run
+   (the Dubins car's and the campaign's) cut to STAGE_GUSTO_SCP_ITERS SCP
+   iterations;
 17. ROMPC at examples/diamond_baselines_campaign.py:130-137's settings on
    the campaign's linear ROM, the LinearROM as the plant, 18 ticks (4
    replans) after a 2-tick delay: kernel 1 (condensed LOCP, B=1, n=80, one
@@ -189,7 +190,7 @@ the tolerances stated below.
    1e-4 I) and run_koopman (delay 1, degree 2, N=10, rollout_horizon=4,
    16 LHS samples, absolute targets), both condensed through kernel 1
    ('pallas'); run_ilqr (Qz as above, R = 1e-2 I, tf the loop's length,
-   iLQRConfig defaults)
+   iLQRConfig defaults but ILQR_ITERS iterations)
    and run_scp_open_loop (N=60, launch.py:122; the target shifted into the
    model's coordinates) through kernel 2. Every launch of kernels 1 and 2
    recorded, the first of each shape and table held to its plain version
@@ -316,6 +317,7 @@ from soft_robot_control_tpu_torch.robots.robots import (  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp import LOCPParams  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto_jit  # noqa: E402
 from soft_robot_control_tpu_torch.scp import gusto as gusto_mod  # noqa: E402,E501
+from soft_robot_control_tpu_torch.lqr import ilqr as ilqr_mod  # noqa: E402,E501
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit  # noqa: E402
 from soft_robot_control_tpu_torch.scp.locp_condensed import (  # noqa: E402
     CondensedParams)
@@ -468,10 +470,10 @@ STAGE_CR_SCAN_F64_TOL = 1e-8
 STAGE_GUSTO_ADMM_ITERS = 6000
 # ... and its SCP iterations, cut in depth: GuSTO's first solve runs up to
 # scp/gusto.py:MAX_ITERS + 1 of them (5 LOCP solves on the card at full
-# depth, each of STAGE_GUSTO_ADMM_ITERS at N=200, about 23 s), which the
-# campaign's two runs patch to this many; the first LOCP, the one held to
-# the CPU, and kernel 2's launches of the rollout, the linearization and
-# the accuracy ratio come first
+# depth, each of STAGE_GUSTO_ADMM_ITERS at N=200, about 23 s; the Dubins
+# car's run to its end in 3), which every run of phase 16 patches to this
+# many; the first LOCP, the one held to the CPU, and kernel 2's launches
+# of the rollout, the linearization and the accuracy ratio come first
 STAGE_GUSTO_SCP_ITERS = 1
 # the Dubins car's f32 plan against the f64 CPU run where their solves
 # match (measured on an H100 80GB HBM3: 5.9e-5)
@@ -567,6 +569,9 @@ TET_PROFILE_SAMPLES, TET_PROFILE_SCP_S = 1, 1.06
 # phase 14's settings, B=1, for SSM_MPC_WINDOWS windows; block_time timed
 # UTIL_REPS times against CUDA events
 RECIPE_DURATION, RECIPE_DELAY = 3.0, 1.0
+# iLQR iterations a solve in phases 24(a) and 26 (lqr/ilqr.py:iLQRConfig
+# allows 51, which the 3 s recipe used: 87.5 s of a 1,130 s run on an H100)
+ILQR_ITERS = 10
 SSM_AMP, SSM_HOLD, SSM_DECAY, SSM_SKIP = 900.0, 1.5, 2.5, 5
 SSM_RIDGE = (1e-8, 1e-6, 1e-4, 1e-2)
 SSM_MPC_WINDOWS, UTIL_REPS = 4, 20
@@ -608,8 +613,13 @@ SSM_MPC_SCALE = 0.5
 # the Diamond SSM --quick, its loop 2.2 s of 11; the Trunk TPWL 3 LHS
 # samples of 40 (--quick's 6), one figure-8 segment of its six (150 mN,
 # 2 s period: the six are 40 s of data), loops of 1.05 s of 11 (iLQR's
-# horizon with them), with the dU leg and iLQR feedback gains at R = 1;
-# the Trunk SSM --quick, its loop 2 s of 6.
+# horizon with them), with the dU leg and iLQR feedback gains at R = 1,
+# iLQR cut to ILQR_ITERS iterations (at its own cap of 51: 23,231 launches
+# of kernel 2, 40 s on an H100); the Trunk SSM --quick, its loop 2 s of 6.
+# The busy share of each twin is its loop's, that stage's first call run
+# under the profiler within the main run (the whole run under it cost 131
+# s more on an H100's host: about 25 us a device operation to collect and
+# sum, 5.2 million operations).
 CAMPAIGN_DIR = os.path.join(HERE, "build", "campaigns")
 CAMPAIGN_RUNS = (
     ("diamond_tet_campaign", ["--samples", "8", "--tpwl-samples", "8",
@@ -622,20 +632,12 @@ CAMPAIGN_RUNS = (
                             "--traj", "150:2", "--sim-duration", "1.05",
                             "--dU-leg", "25", "--ilqr-feedback-R", "1.0"]),
     ("trunk_ssm_campaign", ["--quick", "--sim-duration", "2"]))
-# the profiled pass of each (busy share): shorter still, into a directory
-# of its own; the TPWL campaigns' run their loop alone on the main run's
-# dictionary (phase 23 profiles the collect stages' plant steps), the
-# Trunk SSM's the fit and the held-out runs on the main run's cached
-# identification data
 CAMPAIGN_PROFILED = {
-    "diamond_tet_campaign": ["--skip-collect", "--sim-duration", "1.04"],
-    "diamond_baselines_campaign": ["--sim-duration", "2.02",
-                                   "--koopman-samples", "4",
-                                   "--skip-rompc"],
-    "diamond_ssm_campaign": ["--mpc-only", "--sim-duration", "1.1"],
-    "trunk_tet_campaign": ["--skip-collect", "--skip-ilqr",
-                           "--sim-duration", "1.04"],
-    "trunk_ssm_campaign": ["--quick", "--skip-mpc"]}
+    "diamond_tet_campaign": "run_scp",
+    "diamond_baselines_campaign": "run_koopman",
+    "diamond_ssm_campaign": "run_closed_loop",
+    "trunk_tet_campaign": "run_scp",
+    "trunk_ssm_campaign": "run_closed_loop"}
 # the summaries' keys at these flags, the JAX scripts' (held to them on
 # the CPU by tests/test_torch_campaigns_*.py)
 CAMPAIGN_KEYS = {
@@ -2032,8 +2034,9 @@ def phase_stage_gusto(model64, model, card, dev):
     for name, dtype, device in (("f32", torch.float32, dev),
                                 ("f64", torch.float64, dev),
                                 ("cpu", torch.float64, "cpu")):
-        runs[name] = stage_gusto_run(f"gusto stage dubins {name}",
-                                     dubins(dtype, device))
+        with scp_iterations(STAGE_GUSTO_SCP_ITERS):
+            runs[name] = stage_gusto_run(f"gusto stage dubins {name}",
+                                         dubins(dtype, device))
     out["dubins"] = stage_gusto_compare("gusto stage dubins", runs, card)
 
     z_rel = (feasible_outputs(model64, 1, N + 1)[0]
@@ -2107,6 +2110,24 @@ def scp_iterations(n):
         yield
     finally:
         gusto_mod.MAX_ITERS = real
+
+
+@contextlib.contextmanager
+def ilqr_iterations(n):
+    """Within the block, an iLQR solver built without a config of its own
+    runs at most n iterations (lqr/ilqr.py:iLQRConfig.max_iter + 1)."""
+    real = ilqr_mod.iLQRConfig
+
+    class Capped(real):
+        def __init__(self):
+            super().__init__()
+            self.max_iter = n - 1
+
+    ilqr_mod.iLQRConfig = Capped
+    try:
+        yield
+    finally:
+        ilqr_mod.iLQRConfig = real
 
 
 @contextlib.contextmanager
@@ -3829,7 +3850,7 @@ def phase_recipes(robot, card, dev):
 
     with class_ticks(ilqr) as ticks, counting(
             ilqr, "compute_policy") as pol, counting(
-            iLQR, "_run_backward") as iters:
+            iLQR, "_run_backward") as iters, ilqr_iterations(ILQR_ITERS):
         sim, rec = recipe_tpwl("ilqr", lambda: recipes.run_ilqr(
             robot, d, tt, z_t, Qz=qz, R=1e-2 * np.eye(4),
             tf=RECIPE_DURATION, sim_duration=RECIPE_DURATION,
@@ -4454,80 +4475,20 @@ def phase_entry_points(card, dev):
 # Phase 26: the campaign scripts and the pruner on stand-in meshes
 
 
-@contextlib.contextmanager
-def stage_clock(targets, recorders):
-    """Within the block, each call of module.name for (module, name) in
-    targets timed (wall seconds to a synchronize), with the kernel
-    launches it made and the span [i0, i1) it covers in each list of
-    `recorders`: a list of dicts, one a call."""
-    seen, saved = [], []
-
-    def wrap(real, name):
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            before = read_counts()
-            spans = [len(r) for r in recorders]
-            t0 = time.perf_counter()
-            out = real(*a, **k)
-            torch.cuda.synchronize()
-            after = read_counts()
-            seen.append(dict(stage=name, s=time.perf_counter() - t0,
-                             launches={w: after[w] - before[w] for w in after
-                                       if after[w] > before[w]},
-                             spans=[(i, len(r)) for i, r in
-                                    zip(spans, recorders)]))
-            return out
-        return timed
-
-    for mod, name in targets:
-        real = getattr(mod, name)
-        saved.append((mod, name, real))
-        setattr(mod, name, wrap(real, name))
-    try:
-        yield seen
-    finally:
-        for mod, name, real in saved:
-            setattr(mod, name, real)
-
-
-def campaign_targets(twin):
-    """The stages of a campaign twin: (module, function) pairs."""
-    from soft_robot_control_tpu_torch.models import ssm_learn
-    from soft_robot_control_tpu_torch.sim import closed_loop
-
-    if twin.__name__.endswith("ssm_campaign"):
-        return [(twin, "sysid_data"), (ssm_learn, "learn_ssm"),
-                (twin, "held_out_rel"), (closed_loop, "run_closed_loop")]
-    return [(recipes, n) for n in (
-        "collect_pod_data", "compute_pod_basis", "collect_tpwl_data",
-        "tpwl_rollout_check", "run_scp", "run_ilqr", "run_rompc",
-        "run_koopman")]
-
-
-def run_twin(twin, argv):
-    """twin.main(argv): (summary, the gates' failures, where the
-    quarantined artifacts went). Caught: the gates' own failure, and
-    learn_ssm's verdict that no ridge candidate fits the data stably (the
-    script stops there, as the JAX script does)."""
-    from soft_robot_control_tpu_torch.examples.campaign_gates import (
-        GatesFailed)
+def run_twin(twin, argv, stage):
+    """tet_standins.run_port(twin, argv, stage=stage), with learn_ssm's
+    verdict that no ridge candidate fits the data stably as a failure of
+    the fit: the script stops there, as the JAX script does on such data
+    (tests/test_torch_campaigns_ssm_diamond.py holds both packages to one
+    verdict on each data set)."""
+    from tet_standins import run_port
 
     try:
-        return twin.main(argv), [], {}
-    except GatesFailed as e:
-        return e.summary, e.fails, e.moved
+        return run_port(twin, argv, stage=stage)
     except RuntimeError as e:
         if "unstable dynamics fit" not in str(e):
             raise
         return None, [f"learn_ssm: {e}"], {}
-
-
-def restore_quarantined(moved):
-    """Copy a failed run's quarantined artifacts back, for the next run."""
-    import shutil
-
-    for path, dest in moved.items():
-        shutil.copy(dest, path)
 
 
 def numbers(obj):
@@ -4544,30 +4505,71 @@ def numbers(obj):
 
 
 def campaign_twin(name, argvs, out_dir, card):
-    """One campaign twin on the stand-ins in f32 on the card: the run
-    timed stage by stage with its kernel launches; every launch of kernels
-    1 and 2 recorded, the first of each shape (and table) held to its
-    plain version; the summary's keys against the JAX script's and its
-    numbers finite; the gates' verdict printed; a profiled pass at
-    CAMPAIGN_PROFILED's flags for the device's busy share."""
+    """One campaign twin on the stand-ins in f32 on the card: each stage
+    (the twin's `stage` hook) timed with its kernel launches, the first
+    call of its CAMPAIGN_PROFILED stage under the profiler (the device's
+    busy share of that stage's wall time, from the profiler's raw events;
+    the wall time includes the profiler's cost while the stage runs, not
+    its collection and summary after it, which no time here counts); every
+    launch of kernels 1 and 2 recorded, the first of each shape (and
+    table) held to its plain version; the summary's keys against the JAX
+    script's and its numbers finite; the gates' verdict printed. A failed
+    run's quarantined artifacts are copied back for the next run."""
     import importlib
+
+    from tet_standins import restore
 
     twin = importlib.import_module(
         f"soft_robot_control_tpu_torch.examples.{name}")
     argvs = [list(a) + ["--out", out_dir] for a in argvs]
-    reset_counts()
-    t0 = time.perf_counter()
-    summary, fails, moved = None, [], {}
+    stages, results, profile = [], [], {}
     with recording(batch_mpc, "admm_batched") as qp, recording(
             gusto_jit, "admm_batched") as qp_jit, recording(
             select_ops, "_launch", clone=1) as sel, results_of(
-            recipes, "load_tpwl") as models, stage_clock(
-            campaign_targets(twin), (qp, qp_jit, sel)) as stages:
+            recipes, "load_tpwl") as models:
+
+        def stage(label, fn):
+            torch.cuda.synchronize()
+            before = read_counts()
+            spans = [len(r) for r in (qp, qp_jit, sel)]
+            t0 = time.perf_counter()
+            if label == CAMPAIGN_PROFILED[name] and not profile:
+                box = []
+
+                def timed():
+                    t1 = time.perf_counter()
+                    box.append(fn())
+                    torch.cuda.synchronize()
+                    box.append(time.perf_counter() - t1)
+
+                ops, summary_s = device_events(timed)
+                res, wall_s = box
+                profile.update(stage=label, ops=ops, summary_s=summary_s,
+                               wall_s=wall_s, overhead_s=time.perf_counter()
+                               - t0 - wall_s)
+            else:
+                res = fn()
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            after = read_counts()
+            stages.append(dict(
+                stage=label, s=wall_s,
+                launches={w: after[w] - before[w] for w in after
+                          if after[w] > before[w]},
+                spans=[(i, len(r)) for i, r in zip(spans, (qp, qp_jit,
+                                                           sel))]))
+            return res
+
+        reset_counts()
+        t0 = time.perf_counter()
         for argv in argvs:
-            s, f, m = run_twin(twin, argv)
-            summary = s if s is not None else summary
-            fails, moved = fails + f, {**moved, **m}
-    wall = time.perf_counter() - t0
+            results.append(run_twin(twin, argv, stage))
+            restore(results[-1][2])
+        wall = time.perf_counter() - t0 - profile.get("overhead_s", 0.0)
+    summary = next((s for s, _, _ in reversed(results) if s is not None),
+                   None)
+    fails = [f for _, fs, _ in results for f in fs]
+    moved = {k: v for _, _, m in results for k, v in m.items()}
     counts = read_counts()
     tag = f"campaign {name}"
     argv = " + ".join(" ".join(a) for a in argvs)
@@ -4593,9 +4595,20 @@ def campaign_twin(name, argvs, out_dir, card):
     check(len(sel) == counts["tpwl_select"]
           and len(qp) + len(qp_jit) == counts["admm_batched"],
           f"{tag}: recorded launches are not the counted ones")
+    check(bool(profile), f"{tag}: no {CAMPAIGN_PROFILED[name]} stage ran")
+    ops = profile.pop("ops")
+    dev_ms = sum(ms for ms, _ in ops.values())
+    profile.update(device_ms=dev_ms,
+                   device_busy_share=dev_ms / (1e3 * profile["wall_s"]),
+                   device_ops=sum(n for _, n in ops.values()))
     out = dict(wall_s=wall, stages=stages, launches=counts,
-               summary=summary, gates=fails, quarantined=sorted(moved))
-    restore_quarantined(moved)   # for the profiled pass and the next run
+               summary=summary, gates=fails, quarantined=sorted(moved),
+               profile=profile)
+    print(f"[{tag}] {profile['stage']} under the profiler: device busy "
+          f"{dev_ms:.1f} ms of {profile['wall_s']:.2f} s (share "
+          f"{profile['device_busy_share']:.4f}) in {profile['device_ops']} "
+          f"device operations (then the profiler's collection and "
+          f"summary {profile['overhead_s']:.1f} s, not counted) [{card}]")
     # kernel 2 held at each shape and table, timed at B=1 and at the most
     # frequent shape of more than one state
     if sel:
@@ -4631,40 +4644,6 @@ def campaign_twin(name, argvs, out_dir, card):
             if part:
                 out["admm"][st["stage"]] = hold_recipe_admm(
                     f"{tag} {st['stage']}", part, card)
-    # the profiled pass: the device's busy share of its wall time
-    prof_dir = out_dir + "_profiled"
-    if name == "diamond_baselines_campaign":
-        os.makedirs(prof_dir, exist_ok=True)
-        import shutil
-        shutil.copy(os.path.join(out_dir, "tpwl_model_snapshots.pkl"),
-                    prof_dir)
-    if name in ("diamond_tet_campaign", "trunk_tet_campaign"):
-        os.makedirs(prof_dir, exist_ok=True)
-        import shutil
-        for f in ("pod_model.pkl", "tpwl_model_snapshots.pkl"):
-            shutil.copy(os.path.join(out_dir, f), prof_dir)
-    if name.endswith("ssm_campaign"):
-        os.makedirs(prof_dir, exist_ok=True)
-        import shutil
-        shutil.copy(SSM_ARTIFACTS[name.split("_")[0]], prof_dir)
-        if name == "trunk_ssm_campaign":
-            shutil.copy(os.path.join(out_dir, "sysid_data.pkl"), prof_dir)
-    t0 = time.perf_counter()
-    device = argvs[0][argvs[0].index("--device") + 1]
-    ops, summary_s = device_events(lambda: restore_quarantined(run_twin(
-        twin, CAMPAIGN_PROFILED[name] + ["--out", prof_dir, "--device",
-                                         device])[2]))
-    prof_wall = time.perf_counter() - t0 - summary_s
-    dev_ms = sum(ms for ms, _ in ops.values())
-    out["profile"] = dict(wall_s=prof_wall, device_ms=dev_ms,
-                          device_busy_share=dev_ms / (1e3 * prof_wall),
-                          device_ops=sum(n for _, n in ops.values()),
-                          argv=CAMPAIGN_PROFILED[name])
-    print(f"[{tag}] profiled pass ({' '.join(CAMPAIGN_PROFILED[name])}): "
-          f"{prof_wall:.2f} s, device busy {dev_ms:.1f} ms (share "
-          f"{out['profile']['device_busy_share']:.4f}) in "
-          f"{out['profile']['device_ops']} device operations (summary "
-          f"{summary_s:.1f} s) [{card}]")
     return out
 
 
@@ -4686,10 +4665,8 @@ def phase_campaigns(rec, card, dev):
     stand-ins go through REFERENCE_MESH_DIR with PLANT_CACHE_DIR in the
     same temporary directory, so no real cache is touched; the Diamond's
     box is phase 23's, the Trunk's 700 nodes. The gates' verdicts are
-    printed and recorded, not required (the boxes are not the robots);
-    a failed run's quarantined artifacts are copied back for its profiled
-    pass and the next run. Prints each twin's stage times, busy share,
-    launches and holds."""
+    printed and recorded, not required (the boxes are not the robots).
+    Prints each twin's stage times, busy share, launches and holds."""
     import shutil
 
     from soft_robot_control_tpu_torch.tools import prune_tpwl_dict
@@ -4720,8 +4697,10 @@ def phase_campaigns(rec, card, dev):
                 os.makedirs(d, exist_ok=True)
                 shutil.copy(os.path.join(CAMPAIGN_DIR, "diamond_tet_campaign",
                                          "tpwl_model_snapshots.pkl"), d)
-            out[name] = campaign_twin(
-                name, [a + ["--device", dev.type] for a in argvs], d, card)
+            with ilqr_iterations(ILQR_ITERS):
+                out[name] = campaign_twin(
+                    name, [a + ["--device", dev.type] for a in argvs], d,
+                    card)
         src = os.path.join(CAMPAIGN_DIR, "trunk_tet_campaign",
                            "tpwl_model_snapshots.pkl")
         with open(src, "rb") as f:

@@ -52,8 +52,11 @@ def parser():
     return ap
 
 
-def main(argv=None):
+def main(argv=None, stage=None):
+    """The baselines on argv's flags: the summary they write. `stage(name,
+    fn)` runs each leg (named as its recipe), fn() by default."""
     args = parser().parse_args(argv)
+    stage = stage or (lambda name, fn: fn())
     from soft_robot_control_tpu_torch.examples.campaign_gates import (
         diamond_gates, enforce)
     from soft_robot_control_tpu_torch.robots.robots import DiamondTetRobot
@@ -119,12 +122,11 @@ def main(argv=None):
             print(f"[{time.time()-t0:6.1f}s] ROMPC (scored again from its "
                   f"sim): RMSE {r['tracking_rmse_mm']:.2f} mm", flush=True)
     else:
-        sim = recipes.run_rompc(robot, d, tt, z_target, N=20, N_replan=4,
-                                Qz=np.diag([100.0, 100.0, 0.0]),
-                                R=1e-4 * np.eye(4),
-                                sim_duration=args.sim_duration, delay=1.0,
-                                save_prefix="rompc", locp_backend=backend,
-                                qp_backend=args.qp_backend)
+        sim = stage("run_rompc", lambda: recipes.run_rompc(
+            robot, d, tt, z_target, N=20, N_replan=4,
+            Qz=np.diag([100.0, 100.0, 0.0]), R=1e-4 * np.eye(4),
+            sim_duration=args.sim_duration, delay=1.0, save_prefix="rompc",
+            locp_backend=backend, qp_backend=args.qp_backend))
         results["rompc"] = score(sim)
         print(f"[{time.time()-t0:6.1f}s] ROMPC figure-8: RMSE "
               f"{results['rompc']['tracking_rmse_mm']:.2f} mm", flush=True)
@@ -138,12 +140,12 @@ def main(argv=None):
     else:
         # trained natively (EDMD); absolute tip targets, normalized by the
         # recipe with the training data's scaling
-        sim = recipes.run_koopman(
+        sim = stage("run_koopman", lambda: recipes.run_koopman(
             robot, d, tt, z_target, delay_embed=1, degree=2, N=10,
             rollout_horizon=4, sim_duration=args.sim_duration, delay=1.0,
             nbr_samples=args.koopman_samples, save_prefix="koopman",
             absolute_targets=True, locp_backend=backend,
-            qp_backend=args.qp_backend)
+            qp_backend=args.qp_backend))
         results["koopman"] = score(sim)
         print(f"[{time.time()-t0:6.1f}s] Koopman MPC figure-8: RMSE "
               f"{results['koopman']['tracking_rmse_mm']:.2f} mm", flush=True)

@@ -180,8 +180,12 @@ def contracts(model, z0, steps, dt):
     return n0, nT, bool(np.isfinite(nT) and nT < n0)
 
 
-def main(argv=None):
+def main(argv=None, stage=None):
+    """The campaign on argv's flags: the loop's summary (None with
+    --skip-mpc). `stage(name, fn)` runs each stage (sysid_data, learn_ssm,
+    held_out_rel, run_closed_loop), fn() by default."""
     args = parser().parse_args(argv)
+    stage = stage or (lambda name, fn: fn())
     from soft_robot_control_tpu_torch.models import ssm as ssm_mod
     from soft_robot_control_tpu_torch.models.ssm_learn import (learn_ssm,
                                                                save_mat)
@@ -212,21 +216,21 @@ def main(argv=None):
             raise SystemExit("--mpc-only needs a previously accepted "
                              "diamond_SSM_model.mat")
         return run_mpc(args, robot, plant, load_accepted(), Hf, TIP, dt, t0,
-                       None, True)
+                       None, True, stage)
 
     levels, hold_t, decay_t, tt, acts, rng = levels_and_inputs(
         args.amp, dt, args.quick)
-    decays, acts_data = sysid_data(
+    decays, acts_data = stage("sysid_data", lambda: sysid_data(
         plant, Hf, levels, acts, hold_t, decay_t, dt,
-        os.path.join(args.out, "ssm_sysid_data.pkl"), args.fresh_data, log)
+        os.path.join(args.out, "ssm_sysid_data.pkl"), args.fresh_data, log))
     z_eq = Hf @ to_numpy(plant.x_rest())
-    model = learn_ssm([z[5:] for _, z in decays], dt,
-                      state_dim=args.state_dim, SSM_order=args.ssm_order,
-                      ROM_order=args.rom_order, n_delay=0, z_ref=z_eq,
-                      actuated_trajs=[z for z, _ in acts_data],
-                      input_trajs=[u for _, u in acts_data],
-                      ridge=[1e-8, 1e-6, 1e-4, 1e-2], joint_fit=True,
-                      dtype=dtype, device=dev)
+    model = stage("learn_ssm", lambda: learn_ssm(
+        [z[5:] for _, z in decays], dt, state_dim=args.state_dim,
+        SSM_order=args.ssm_order, ROM_order=args.rom_order, n_delay=0,
+        z_ref=z_eq, actuated_trajs=[z for z, _ in acts_data],
+        input_trajs=[u for _, u in acts_data],
+        ridge=[1e-8, 1e-6, 1e-4, 1e-2], joint_fit=True, dtype=dtype,
+        device=dev))
     log(f"SSM trained: state_dim {model.state_dim}")
 
     # gate 1: an unforced decay contracts
@@ -239,7 +243,8 @@ def main(argv=None):
     u_tests = [0.4 * args.amp * (1 + np.sin(
         2 * np.pi * 0.45 * tt[:, None]
         + rng.uniform(0, 2 * np.pi, 4)[None, :])) for _ in levels]
-    rel, rels = held_out_rel(model, plant, Hf, u_tests, dt)
+    rel, rels = stage("held_out_rel", lambda: held_out_rel(
+        model, plant, Hf, u_tests, dt))
     log(f"held-out actuated tip prediction rel RMS mean {rel:.3f} over "
         f"{len(rels)} runs ({['%.3f' % r for r in rels]})")
 
@@ -262,15 +267,18 @@ def main(argv=None):
 
     if args.skip_mpc:
         return None
-    return run_mpc(args, robot, plant, model, Hf, TIP, dt, t0, rel, stable)
+    return run_mpc(args, robot, plant, model, Hf, TIP, dt, t0, rel, stable,
+                   stage)
 
 
-def run_mpc(args, robot, plant, model, Hf, tip, dt, t0, rel, stable):
+def run_mpc(args, robot, plant, model, Hf, tip, dt, t0, rel, stable,
+            stage=None):
     """The closed-loop SSM MPC on the tet plant in the reference's
     configuration: control dt 0.02 (2 plant steps), N=3, N_replan=2,
     Qz=diag(100,100,0,...), R=1e-5, the figure-8 about rest
     (diamond_SSM.py:195-218, 281-282, 355-361). Writes
-    diamond_ssm_mpc_sim.pkl and diamond_ssm_mpc.json; returns the summary."""
+    diamond_ssm_mpc_sim.pkl and diamond_ssm_mpc.json; returns the summary.
+    `stage` runs the loop as main's does."""
     from soft_robot_control_tpu_torch.control.mpc import scp_ssm
     from soft_robot_control_tpu_torch.control.service import GuSTOService
     from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
@@ -302,10 +310,11 @@ def run_mpc(args, robot, plant, model, Hf, tip, dt, t0, rel, stable):
     controller = scp_ssm(model, None, dt_c, N_replan=2, delay=1.0, wait=True,
                          solver_service=service)
     Cf = robot.get_measurement_model(nodes=[tip])
-    sim = _host(run_closed_loop(plant, controller,
-                                sim_duration=args.sim_duration, dt=dt,
-                                measurement_model=_Lin(Cf, plant.device),
-                                output_model=_Lin(Hf, plant.device)))
+    stage = stage or (lambda name, fn: fn())
+    sim = _host(stage("run_closed_loop", lambda: run_closed_loop(
+        plant, controller, sim_duration=args.sim_duration, dt=dt,
+        measurement_model=_Lin(Cf, plant.device),
+        output_model=_Lin(Hf, plant.device))))
     z = np.asarray(sim["z"])  # [q_tip; v_tip]
     t = np.asarray(sim["t"])
     zs = z[:, :2] - to_numpy(model.z_ref)[:2]

@@ -111,8 +111,11 @@ def delay_rmse(sim, tt, z_target, delay, t_from):
         (z[act][:, :2] - zt[act][:, :2]) ** 2, axis=1))))
 
 
-def main(argv=None):
+def main(argv=None, stage=None):
+    """The campaign on argv's flags: the summary it writes. `stage(name,
+    fn)` runs each recipe stage (named as its recipe), fn() by default."""
     args = parser().parse_args(argv)
+    stage = stage or (lambda name, fn: fn())
     from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
     from soft_robot_control_tpu_torch.examples.campaign_gates import (
         diamond_gates, enforce)
@@ -137,10 +140,10 @@ def main(argv=None):
     os.makedirs(d, exist_ok=True)
     summary_path = os.path.join(d, "diamond_tpwl_campaign.json")
     summary = load_summary(summary_path)
-    for stage, skip in (("collect", args.skip_collect),
+    for part, skip in (("collect", args.skip_collect),
                         ("mpc", args.skip_mpc)):
         if not skip:
-            for k in STAGE_FIELDS[stage]:
+            for k in STAGE_FIELDS[part]:
                 summary.pop(k, None)
 
     def persist():
@@ -148,25 +151,25 @@ def main(argv=None):
             json.dump(summary, f, indent=1)
 
     if not args.skip_collect:
-        snap = recipes.collect_pod_data(robot, d, nbr_samples=args.samples,
-                                        t_step=args.t_step)
+        snap = stage("collect_pod_data", lambda: recipes.collect_pod_data(
+            robot, d, nbr_samples=args.samples, t_step=args.t_step))
         print(f"[{time.time()-t0:6.1f}s] POD data: {len(snap['q'])} "
               f"snapshots", flush=True)
-        res = recipes.compute_pod_basis(d, pod_tolerance=args.pod_tol,
-                                        pod_type="a", rom_dim=args.rom_dim)
+        res = stage("compute_pod_basis", lambda: recipes.compute_pod_basis(
+            d, pod_tolerance=args.pod_tol, pod_type="a",
+            rom_dim=args.rom_dim))
         r = res["POD_info"]["U"].shape[1]
         print(f"[{time.time()-t0:6.1f}s] POD basis: r = {r}", flush=True)
         summary["rom_dim"] = int(r)
-        model = recipes.collect_tpwl_data(robot, d, threshold=args.threshold,
-                                          nbr_samples=args.tpwl_samples,
-                                          t_step=args.t_step,
-                                          dynamics="discrete",
-                                          eval_type=args.eval_type)
+        model = stage("collect_tpwl_data", lambda: recipes.collect_tpwl_data(
+            robot, d, threshold=args.threshold,
+            nbr_samples=args.tpwl_samples, t_step=args.t_step,
+            dynamics="discrete", eval_type=args.eval_type))
         print(f"[{time.time()-t0:6.1f}s] TPWL dictionary: "
               f"P = {model.num_points} (discrete, dt={robot.dt})", flush=True)
         summary["tpwl_points"] = int(model.num_points)
-        chk = recipes.tpwl_rollout_check(robot, d, nbr_samples=6, seed=333,
-                                         t_step=args.t_step)
+        chk = stage("tpwl_rollout_check", lambda: recipes.tpwl_rollout_check(
+            robot, d, nbr_samples=6, seed=333, t_step=args.t_step))
         print(f"[{time.time()-t0:6.1f}s] held-out rollout: MSE "
               f"{chk['mse']:.4g}, rel err {chk['rel_err']:.4f}", flush=True)
         summary["heldout_rel_err"] = float(chk["rel_err"])
@@ -182,14 +185,14 @@ def main(argv=None):
     # the dictionary's own dt; one LOCP a query (max_gusto_iters=0), the
     # trust region off, two one-shot rounds with the plan bound
     # (scp/gusto.py:_build_oneshot)
-    sim = recipes.run_scp(
+    sim = stage("run_scp", lambda: recipes.run_scp(
         robot, d, tt, z_target, dt_solver=robot.dt, N=10, N_replan=2,
         Qz=np.diag([100.0, 100.0, 0.0]), R=1e-5 * np.eye(4),
         sim_duration=args.sim_duration, delay=1.0,
         U=HyperRectangle(1500.0 * np.ones(4), np.zeros(4)),
         save_prefix="scp_fig8", max_gusto_iters=0, is_tr_active=False,
         locp_backend="condensed", oneshot_iters=2, plan_bound=60.0,
-        dtype=tdtype)
+        dtype=tdtype))
     # scored against the delay-shifted target, and the unshifted beside it
     rmse = delay_rmse(sim, tt, z_target, 1.0, 1.0)
     rmse_unshifted = delay_rmse(sim, tt, z_target, 0.0, 1.0)

@@ -103,8 +103,12 @@ def levels_and_inputs(amp, dt, quick, half_levels):
     return levels, hold_t, decay_t, tt, acts, rng
 
 
-def main(argv=None):
+def main(argv=None, stage=None):
+    """The campaign on argv's flags: the loop's summary (None with
+    --skip-mpc). `stage(name, fn)` runs each stage (sysid_data, learn_ssm,
+    held_out_rel, run_closed_loop), fn() by default."""
     args = parser().parse_args(argv)
+    stage = stage or (lambda name, fn: fn())
     from soft_robot_control_tpu_torch.control.mpc import scp_ssm
     from soft_robot_control_tpu_torch.control.service import GuSTOService
     from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
@@ -142,20 +146,21 @@ def main(argv=None):
 
     levels, hold_t, decay_t, tt, acts, rng = levels_and_inputs(
         args.amp, dt, args.quick, args.half_levels)
-    decays, acts_data = sysid_data(
+    decays, acts_data = stage("sysid_data", lambda: sysid_data(
         plant, Hf, levels, acts, hold_t, decay_t, dt,
-        os.path.join(args.out, "sysid_data.pkl"), args.fresh_data, log)
+        os.path.join(args.out, "sysid_data.pkl"), args.fresh_data, log))
     z_eq = Hf @ to_numpy(plant.x_rest())
     # ridge candidates up to 1e4: the decays swing the tip far, and cubic
     # monomials of the reduced coordinates give ill-conditioned normal
     # equations (the held-out data still picks the weight)
     try:
-        model = learn_ssm([z[5:] for _, z in decays], dt, state_dim=6,
-                          SSM_order=3, ROM_order=3, n_delay=0, z_ref=z_eq,
-                          actuated_trajs=[z for z, _ in acts_data],
-                          input_trajs=[u for _, u in acts_data],
-                          ridge=[1e-8, 1e-6, 1e-4, 1e-2, 1.0, 1e2, 1e4],
-                          joint_fit=True, dtype=dtype, device=dev)
+        model = stage("learn_ssm", lambda: learn_ssm(
+            [z[5:] for _, z in decays], dt, state_dim=6, SSM_order=3,
+            ROM_order=3, n_delay=0, z_ref=z_eq,
+            actuated_trajs=[z for z, _ in acts_data],
+            input_trajs=[u for _, u in acts_data],
+            ridge=[1e-8, 1e-6, 1e-4, 1e-2, 1.0, 1e2, 1e4], joint_fit=True,
+            dtype=dtype, device=dev))
     except RuntimeError as e:
         if not os.path.exists(art_path):
             raise
@@ -178,8 +183,9 @@ def main(argv=None):
             + rng.uniform(0, 2 * np.pi, 8)[None, :]))
         u_t[:, 4:] = 0.0
         u_tests.append(u_t)
-    rel, rels = held_out_rel(model, plant, Hf, u_tests, dt,
-                             step=lambda x, u: model.update_state(x, u, dt))
+    rel, rels = stage("held_out_rel", lambda: held_out_rel(
+        model, plant, Hf, u_tests, dt,
+        step=lambda x, u: model.update_state(x, u, dt)))
     log(f"held-out actuated tip prediction rel RMS mean {rel:.3f} over "
         f"{len(rels)} runs ({['%.3f' % r for r in rels]})")
 
@@ -225,11 +231,11 @@ def main(argv=None):
     controller = scp_ssm(model, None, dt_c, N_replan=2, delay=1.0, wait=True,
                          solver_service=service)
     Cf = robot.get_measurement_model(nodes=[TIP])  # [v_tip; q_tip] raw y
-    sim = _host(run_closed_loop(plant, controller,
-                                sim_duration=args.sim_duration, dt=dt,
-                                measurement_model=_Lin(Cf, plant.device),
-                                output_model=_Lin(Hf, plant.device),
-                                u_limits=(np.zeros(8), u_env * np.ones(8))))
+    sim = _host(stage("run_closed_loop", lambda: run_closed_loop(
+        plant, controller, sim_duration=args.sim_duration, dt=dt,
+        measurement_model=_Lin(Cf, plant.device),
+        output_model=_Lin(Hf, plant.device),
+        u_limits=(np.zeros(8), u_env * np.ones(8)))))
     z = np.asarray(sim["z"])  # [q_tip; v_tip]
     t = np.asarray(sim["t"])
     zs = z[:, :2] - to_numpy(model.z_ref)[:2]

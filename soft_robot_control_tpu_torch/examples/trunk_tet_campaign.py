@@ -118,8 +118,11 @@ def figure8(z_eq, duration):
     return tt, z
 
 
-def main(argv=None):
+def main(argv=None, stage=None):
+    """The campaign on argv's flags: the summary it writes. `stage(name,
+    fn)` runs each recipe stage (named as its recipe), fn() by default."""
     args = parser().parse_args(argv)
+    stage = stage or (lambda name, fn: fn())
     from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
     from soft_robot_control_tpu_torch.examples.campaign_gates import (
         enforce, trunk_gates)
@@ -155,45 +158,47 @@ def main(argv=None):
     # each stage owns its fields: dropped up front when the stage runs, so
     # that a partial rerun leaves no stale number beside fresh ones
     summary.pop("platform", None)
-    for stage, skip in (("collect", args.skip_collect),
+    for part, skip in (("collect", args.skip_collect),
                         ("mpc", args.skip_mpc), ("ilqr", args.skip_ilqr)):
         if not skip:
-            for k in STAGE_FIELDS[stage]:
+            for k in STAGE_FIELDS[part]:
                 summary.pop(k, None)
     if args.dU_leg > 0:
         summary.pop("dU_leg", None)
 
     if not args.skip_collect:
         if not args.skip_pod:
-            snap = recipes.collect_pod_data(
+            snap = stage("collect_pod_data", lambda: recipes.collect_pod_data(
                 robot, d, nbr_samples=args.samples, t_step=args.t_step,
-                amplitude_scale=args.amplitude_scale, traj=traj)
+                amplitude_scale=args.amplitude_scale, traj=traj))
             log(f"POD data: {len(snap['q'])} snapshots")
-            res = recipes.compute_pod_basis(d, pod_tolerance=5e-5,
-                                            pod_type="a",
-                                            rom_dim=args.rom_dim)
+            res = stage("compute_pod_basis",
+                        lambda: recipes.compute_pod_basis(
+                            d, pod_tolerance=5e-5, pod_type="a",
+                            rom_dim=args.rom_dim))
             r = res["POD_info"]["U"].shape[1]
         else:
             from soft_robot_control_tpu_torch.rom.pod import load_POD
             r = load_POD(os.path.join(d, "pod_model.pkl"), device=dev).rom_dim
         log(f"POD basis: r = {r}")
         summary["rom_dim"] = int(r)
-        model = recipes.collect_tpwl_data(
+        model = stage("collect_tpwl_data", lambda: recipes.collect_tpwl_data(
             robot, d, threshold=args.threshold,
             nbr_samples=args.tpwl_samples, t_step=args.t_step,
             dynamics="discrete", amplitude_scale=args.amplitude_scale,
-            traj=traj)
+            traj=traj))
         log(f"TPWL dictionary: P = {model.num_points}")
         summary["tpwl_points"] = int(model.num_points)
-        chk = recipes.tpwl_rollout_check(
+        chk = stage("tpwl_rollout_check", lambda: recipes.tpwl_rollout_check(
             robot, d, nbr_samples=6, seed=333, t_step=args.t_step,
-            amplitude_scale=args.amplitude_scale)
+            amplitude_scale=args.amplitude_scale))
         log(f"held-out rollout: MSE {chk['mse']:.4g}, rel err "
             f"{chk['rel_err']:.4f}")
         summary["heldout_rel_err"] = float(chk["rel_err"])
         # the task's regime: a figure-8 at an amplitude and period between
         # the training segments
-        chk2 = recipes.tpwl_rollout_check(robot, d, traj=(175.0, 2.25))
+        chk2 = stage("tpwl_rollout_check", lambda: recipes.tpwl_rollout_check(
+            robot, d, traj=(175.0, 2.25)))
         log(f"held-out fig-8 rollout: MSE {chk2['mse']:.4g}, rel err "
             f"{chk2['rel_err']:.4f}")
         summary["heldout_traj_rel_err"] = float(chk2["rel_err"])
@@ -221,13 +226,13 @@ def main(argv=None):
         # the trust-region SCP loop on the device, one dispatch a query,
         # the 40 mm plan bound as a reject, LQR feedback at fbR, the
         # applied command saturated at the input bound
-        return recipes.run_scp(
+        return stage("run_scp", lambda: recipes.run_scp(
             robot, d, tt, z_target, dt_solver=robot.dt, N=args.solver_N,
             N_replan=2, Qz=Qz, R=R, sim_duration=args.sim_duration,
             delay=1.0, U=U, dU=dU, save_prefix=prefix,
             locp_backend="condensed", dtype=tdtype, device_tr=True,
             plan_bound=40.0, u_sat=args.u_bound, feedback=fbR > 0,
-            feedback_R=fbR if fbR > 0 else None)
+            feedback_R=fbR if fbR > 0 else None))
 
     def slew(bound):
         return None if bound <= 0 else HyperRectangle(
@@ -278,12 +283,11 @@ def main(argv=None):
     if not args.skip_ilqr:
         # iLQR on the TPWL ROM (trunk.py:327-380), R = 1e-2, the applied
         # command saturated at the dictionary's training envelope
-        sim = recipes.run_ilqr(robot, d, tt, z_target, Qz=Qz,
-                               R=1e-2 * np.eye(8),
-                               sim_duration=args.sim_duration, delay=1.0,
-                               tf=args.sim_duration, save_prefix="ilqr_fig8",
-                               u_sat=args.u_bound,
-                               feedback_R=args.ilqr_feedback_R)
+        sim = stage("run_ilqr", lambda: recipes.run_ilqr(
+            robot, d, tt, z_target, Qz=Qz, R=1e-2 * np.eye(8),
+            sim_duration=args.sim_duration, delay=1.0,
+            tf=args.sim_duration, save_prefix="ilqr_fig8",
+            u_sat=args.u_bound, feedback_R=args.ilqr_feedback_R))
         rmse = delay_rmse(sim, tt, z_target, 1.0, 1.0)
         log(f"iLQR figure-8: tracking RMSE {rmse:.3f} mm (vs delay-shifted "
             f"target)")

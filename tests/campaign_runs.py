@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 import tet_standins as S
+from tet_standins import restore, run_port  # noqa: F401 (the tests' helpers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,25 +45,6 @@ def run_jax(mod, argv):
         mod.main()
     finally:
         sys.argv, gatekeeper.enforce_gates = saved_argv, saved_gate
-
-
-def run_port(mod, argv):
-    """The twin's main(argv): (summary, gate failures, quarantined files)."""
-    from soft_robot_control_tpu_torch.examples.campaign_gates import (
-        GatesFailed)
-
-    try:
-        return mod.main(list(argv)), [], {}
-    except GatesFailed as e:
-        return e.summary, e.fails, e.moved
-
-
-def restore(moved):
-    """Copy quarantined artifacts back where the run wrote them."""
-    import shutil
-
-    for path, dest in moved.items():
-        shutil.copy(dest, path)
 
 
 @contextlib.contextmanager

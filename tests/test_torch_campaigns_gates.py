@@ -243,9 +243,9 @@ def test_gate_fails_a_pushed_copy_as_jax(push, tmp_path, monkeypatch):
 
 def test_runners_read_the_run_directory(tmp_path):
     """diamond_gates / trunk_gates: the gates of a file (or those -k
-    selects) on the committed directory hold; a directory without the
-    file's key artifact skips them all, as the module-level skip of the
-    JAX file does; a pushed copy fails by its gate's name."""
+    selects) on the committed directory hold; an empty directory holds
+    (each gate's artifact is absent); a pushed copy fails by its gate's
+    name."""
     assert G.trunk_gates(TRUNK) == []
     assert G.diamond_gates(str(tmp_path)) == G.trunk_gates(
         str(tmp_path)) == []
@@ -255,6 +255,27 @@ def test_runners_read_the_run_directory(tmp_path):
     fails = G.trunk_gates(d)
     assert len(fails) == 1 and fails[0].startswith("trunk_ssm_mpc_gates")
     assert G.diamond_gates(DIAMOND, k="baselines") == []
+
+
+def test_trunk_ssm_gate_judges_a_run_alone(tmp_path):
+    """A Trunk SSM run writes trunk_ssm_mpc.json into a directory without
+    the TPWL campaign's summary: the 8 mm and 300 mN limits still judge
+    it (the JAX file would skip them there), and a run within them
+    holds."""
+    d = str(tmp_path / "ssm")
+    os.makedirs(d)
+    with open(os.path.join(TRUNK, "trunk_ssm_mpc.json")) as f:
+        src = json.load(f)
+    for field, value in (("tracking_rmse_mm", 8.0),
+                         ("u_envelope_mN", 300.5)):
+        with open(os.path.join(d, "trunk_ssm_mpc.json"), "w") as f:
+            json.dump(dict(src, **{field: value}), f)
+        fails = G.trunk_gates(d)
+        assert len(fails) == 1 and fails[0].startswith(
+            "trunk_ssm_mpc_gates"), (field, fails)
+    with open(os.path.join(d, "trunk_ssm_mpc.json"), "w") as f:
+        json.dump(src, f)
+    assert G.trunk_gates(d) == []
 
 
 def test_enforce_quarantines_a_failing_run(tmp_path):

@@ -12,8 +12,9 @@ rollout overflows is a knife edge on such data: the port's own decays
 (within 1.1e-14 of JAX's) tip it the other way (learn_ssm raises), so the
 port's fit runs on the JAX run's cached data (ssm_sysid_data.pkl, the
 script's own cache) and its collection is held to JAX's in a run of its
-own. --quick and a 2.1 s loop (scored from 2 s) are the script's shortest
-settings."""
+own. The verdict is the data's, not the package's: on the port's data the
+JAX script's learn_ssm raises as well. --quick and a 2.1 s loop (scored
+from 2 s) are the script's shortest settings."""
 
 import os
 import shutil
@@ -50,7 +51,7 @@ def _map_tip(mp, *modules):
 def runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("campaigns_ssm_diamond"))
     dirs = {k: os.path.join(root, k) for k in ("j", "t", "collect",
-                                                "t_mpc")}
+                                                "t_mpc", "j_port_data")}
     for k in ("j", "t", "t_mpc"):
         os.makedirs(dirs[k])
         shutil.copy(SSM_ARTIFACTS["diamond"], dirs[k])
@@ -66,6 +67,13 @@ def runs(tmp_path_factory):
             diamond_ssm_campaign.main(["--device", "cpu", "--out",
                                        dirs["collect"], "--skip-mpc"]
                                       + FLAGS)
+        os.makedirs(dirs["j_port_data"])
+        shutil.copy(os.path.join(dirs["collect"], "ssm_sysid_data.pkl"),
+                    dirs["j_port_data"])
+        with pytest.raises(RuntimeError) as e:
+            C.run_jax(jm, ["--platform", "cpu", "--out", dirs["j_port_data"],
+                           "--skip-mpc"] + FLAGS)
+        out["jax_on_port_data"] = str(e.value)
         out["port_mpc"] = diamond_ssm_campaign.main(
             ["--device", "cpu", "--out", dirs["t_mpc"], "--mpc-only"]
             + FLAGS)
@@ -105,6 +113,17 @@ def test_rejected_fit_is_the_jax_scripts(runs):
     for k in ("j", "t"):
         assert open(os.path.join(d[k], "diamond_SSM_model.mat"),
                     "rb").read() == committed
+
+
+def test_fit_verdict_is_the_datas_in_both_packages(runs):
+    """Each package's learn_ssm gives the same verdict on each data set:
+    on the JAX script's decays both fit and reject the fit by its gates
+    (test_rejected_fit_is_the_jax_scripts); on the port's own decays
+    (within DATA_REL of JAX's) every ridge candidate's fit is unstable in
+    both, the port's run and the JAX script's on the port's cache."""
+    assert "unstable dynamics fit" in runs["jax_on_port_data"]
+    assert not os.path.exists(os.path.join(
+        runs["dirs"]["j_port_data"], "diamond_SSM_model.rejected.mat"))
 
 
 def _same_loop(runs, jdir, tdir, summary, **fields):

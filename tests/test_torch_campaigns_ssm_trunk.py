@@ -50,6 +50,7 @@ def runs(tmp_path_factory):
         out["port"] = C.run_port(trunk_ssm_campaign,
                                  ["--device", "cpu", "--out", dirs["t"]]
                                  + FLAGS)
+        C.restore(out["port"][2])   # the loop's artifacts, to compare
     out["caches_after"] = C.real_plant_caches()
     return out
 
@@ -84,11 +85,19 @@ def test_both_reject_their_fits(runs):
 
 def test_loop_after_the_rejected_fit_is_the_jax_scripts(runs):
     """The closed loop on the accepted (committed) model: the summary's
-    keys and numbers, the sim pickle within LOOP_REL; the Trunk gates
-    skip without the TPWL campaign's summary in --out, so the run holds."""
+    keys and numbers, the sim pickle within LOOP_REL. The Trunk SSM gate
+    judges the run in its own --out, where the TPWL campaign's summary is
+    absent: on the box the loop tracks worse than 8 mm, so the run fails
+    that gate alone and its two artifacts go to --out/rejected/."""
     summary, fails, moved = runs["port"]
-    assert fails == [] and moved == {}
     d = runs["dirs"]
+    assert summary["tracking_rmse_mm"] >= 8.0, summary
+    assert len(fails) == 1 and fails[0].startswith(
+        "trunk_ssm_mpc_gates"), fails
+    assert sorted(os.path.basename(p) for p in moved) == [
+        "ssm_mpc_sim.pkl", "trunk_ssm_mpc.json"]
+    for dest in moved.values():
+        assert os.path.dirname(dest) == os.path.join(d["t"], "rejected")
     ref = C.load_json(os.path.join(d["j"], "trunk_ssm_mpc.json"))
     C.same_summaries(summary, ref, SUMMARY_REL, skip=("solve_ms_mean",))
     C.same_summaries(summary, C.load_json(os.path.join(

@@ -16,6 +16,10 @@ saved as the Diamond, and a later run on the real mesh would load the box.
 Both packages write the same npz layout under the same key, so modules
 given one cache directory share one build.
 
+`run_port(mod, argv)` runs a campaign twin's main and returns what its
+gates said; `restore(moved)` copies a failed run's quarantined artifacts
+back where the run wrote them.
+
 Used by the CPU tests and by chip_smoke.py; JAX-free; importing it changes
 nothing."""
 
@@ -133,3 +137,23 @@ def standins(root, fems, diamond=DIAMOND_BOX, trunk=TRUNK_BOX):
         for f, mesh, cache in saved:
             f.REFERENCE_MESH_DIR = mesh
             f.PLANT_CACHE_DIR = cache
+
+
+def run_port(mod, argv, **kw):
+    """A campaign twin's main(argv, **kw): (summary, the gates' failures,
+    where the quarantined artifacts went)."""
+    from soft_robot_control_tpu_torch.examples.campaign_gates import (
+        GatesFailed)
+
+    try:
+        return mod.main(list(argv), **kw), [], {}
+    except GatesFailed as e:
+        return e.summary, e.fails, e.moved
+
+
+def restore(moved):
+    """Copy quarantined artifacts back where the run wrote them."""
+    import shutil
+
+    for path, dest in moved.items():
+        shutil.copy(dest, path)
