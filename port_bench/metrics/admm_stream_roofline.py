@@ -1,0 +1,8 @@
+"""Kernel 3's streaming form's (ops/admm_batched.py, csrc/admm_stream.cu)
+share of its roofline: the least time of its launches' work, counted from
+the sparse LOCPs' shapes (harness/roofline.py), over the time of its
+device operations in the trace. A trace without them is an error."""
+
+
+def read(ctx):
+    return ctx.roofline_percent("admm_stream")
