@@ -54,6 +54,7 @@ from soft_robot_control_tpu_torch.scp.locp import LOCPParams, LOCPSpec
 from soft_robot_control_tpu_torch.scp.locp_condensed import (CondensedParams,
                                                              CondensedSpec)
 from soft_robot_control_tpu_torch.utils.device import as_tensor, resolve_device
+from soft_robot_control_tpu_torch.utils.timing import span
 
 
 def admm_fixed(P, q, A, l, u, w0, y0, rho_vec, iters: int, sigma=1e-6,
@@ -116,8 +117,10 @@ def equilibrate_qp(P, q, A, l, u, w0, y0, iters: int = 6):
     the scaled space. Returns scaled (P, q, A, l, u, w0, y0) and the
     scalings (d, e, c) that map the solution back: w = d w_s,
     y = e y_s / c."""
-    Ps, qs, As, d, e, c = _ruiz_equilibrate(P, q, A, iters)
-    return Ps, qs, As, e * l, e * u, w0 / d, c[:, None] * y0 / e, (d, e, c)
+    with span("qp.ruiz"):
+        Ps, qs, As, d, e, c = _ruiz_equilibrate(P, q, A, iters)
+        return (Ps, qs, As, e * l, e * u, w0 / d, c[:, None] * y0 / e,
+                (d, e, c))
 
 
 def _rho_multiplier(P, q, A, l, u, w, y):
@@ -158,8 +161,9 @@ def admm_staged_batched(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
                              per, sigma, alpha)
         y = srt * ys
         if s < stages - 1:
-            mult = _rho_multiplier(P, q, A, l, u, w, y)
-            rho = torch.clamp(rho * mult[:, None], RHO_MIN, RHO_MAX)
+            with span("qp.rho"):
+                mult = _rho_multiplier(P, q, A, l, u, w, y)
+                rho = torch.clamp(rho * mult[:, None], RHO_MIN, RHO_MAX)
     return w, y
 
 
@@ -325,63 +329,70 @@ class BatchMPC:
                            fused: bool):
         """One LOCP solve per loop, linearized along its shifted plan.
         z_win holds absolute targets (B, N+1, n_z)."""
-        x_plan, u_plan = self._shift_plan(x_plan, u_plan)
-        z_win = z_win - self.model.z_ref
-        Bsz = x0.shape[0]
-        condensed = self.formulation == "condensed"
-        zeros = lambda *shape: torch.zeros((Bsz,) + shape, dtype=self.dtype,
-                                           device=self.device)
-        for _ in range(self.scp_iters):
-            w0, y0 = warm
-            Ad, Bd, dd = self._gather_traj(x_plan)
-            if condensed:
-                P, q, A, l, u, _, xfree, G = self.cspec.assemble(
-                    CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z_win,
-                                    u_des=zeros(self.N, self.n_u)))
-            else:
-                P, q, A, l, u, _ = self.spec.assemble(LOCPParams(
-                    Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_plan,
-                    delta=self.delta0, omega=self.omega0, z=z_win,
-                    zf=zeros(self.n_z), u_des=zeros(self.N, self.n_u)))
-            if self.scaling_iters > 0:
-                P, q, A, l, u, w0, y0, (d_s, e_s, c_s) = equilibrate_qp(
-                    P, q, A, l, u, w0, y0, self.scaling_iters)
-            w, y = self._solve_qp(P, q, A, l, u, w0, y0, fused)
-            if self.scaling_iters > 0:
-                w = d_s * w
-                y = e_s * y / c_s[:, None]
-            if condensed:
-                u_plan = w.reshape(Bsz, self.N, self.n_u)
-                x_plan = self.cspec.recover_x(xfree, G, w)
-            else:
-                x_plan, u_plan, _ = self.spec.split(w)
-            warm = (w, y)
-        return x_plan, u_plan, warm
+        with span("mpc.window"):
+            x_plan, u_plan = self._shift_plan(x_plan, u_plan)
+            z_win = z_win - self.model.z_ref
+            Bsz = x0.shape[0]
+            condensed = self.formulation == "condensed"
+            zeros = lambda *shape: torch.zeros(
+                (Bsz,) + shape, dtype=self.dtype, device=self.device)
+            for _ in range(self.scp_iters):
+                w0, y0 = warm
+                Ad, Bd, dd = self._gather_traj(x_plan)
+                with span("qp.assemble"):
+                    if condensed:
+                        P, q, A, l, u, _, xfree, G = self.cspec.assemble(
+                            CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0,
+                                            z=z_win,
+                                            u_des=zeros(self.N, self.n_u)))
+                    else:
+                        P, q, A, l, u, _ = self.spec.assemble(LOCPParams(
+                            Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_plan,
+                            delta=self.delta0, omega=self.omega0, z=z_win,
+                            zf=zeros(self.n_z),
+                            u_des=zeros(self.N, self.n_u)))
+                if self.scaling_iters > 0:
+                    P, q, A, l, u, w0, y0, (d_s, e_s, c_s) = equilibrate_qp(
+                        P, q, A, l, u, w0, y0, self.scaling_iters)
+                w, y = self._solve_qp(P, q, A, l, u, w0, y0, fused)
+                with span("qp.recover"):
+                    if self.scaling_iters > 0:
+                        w = d_s * w
+                        y = e_s * y / c_s[:, None]
+                    if condensed:
+                        u_plan = w.reshape(Bsz, self.N, self.n_u)
+                        x_plan = self.cspec.recover_x(xfree, G, w)
+                    else:
+                        x_plan, u_plan, _ = self.spec.split(w)
+                warm = (w, y)
+            return x_plan, u_plan, warm
 
     def _tick(self, x_p, ekf, x_plan, u_plan, k, noise):
         """One controller tick for every loop; `noise` (B, n_y) or None."""
-        m = self.model
-        Bsz = x_p.shape[0]
-        mv = lambda M, v: (M @ v[..., None])[..., 0]
-        x_bar, u_bar = x_plan[:, k], u_plan[:, k]
-        # one select: the plan point's DARE gain, rows at the plant state
-        # and the estimate only
-        _, A, Bm, d, K = self._select(torch.cat([x_bar, x_p, ekf.x], dim=0),
-                                      index_only=Bsz, gains=True)
-        u = u_bar + mv(K, ekf.x - x_bar)
-        if self.u_clamp is not None:
-            u = torch.clamp(u, self.u_clamp[0], self.u_clamp[1])
-        p, e = slice(0, Bsz), slice(Bsz, 2 * Bsz)
-        x_next = mv(A[p], x_p) + mv(Bm[p], u) + d[p]
-        y = x_next @ m.C.T + m.y_ref
-        if noise is not None:
-            y = y + noise
-        A_e = A[e]
-        pred = EKFState(mv(A_e, ekf.x) + mv(Bm[e], u) + d[e],
-                        A_e @ ekf.Sigma @ A_e.transpose(-1, -2) + self.W)
-        ekf = ekf_correct(m, pred, y, self.V)
-        z = x_next @ m.H.T + m.z_ref
-        return x_next, ekf, z, u
+        with span("mpc.tick"):
+            m = self.model
+            Bsz = x_p.shape[0]
+            mv = lambda M, v: (M @ v[..., None])[..., 0]
+            x_bar, u_bar = x_plan[:, k], u_plan[:, k]
+            # one select: the plan point's DARE gain, rows at the plant
+            # state and the estimate only
+            _, A, Bm, d, K = self._select(
+                torch.cat([x_bar, x_p, ekf.x], dim=0), index_only=Bsz,
+                gains=True)
+            u = u_bar + mv(K, ekf.x - x_bar)
+            if self.u_clamp is not None:
+                u = torch.clamp(u, self.u_clamp[0], self.u_clamp[1])
+            p, e = slice(0, Bsz), slice(Bsz, 2 * Bsz)
+            x_next = mv(A[p], x_p) + mv(Bm[p], u) + d[p]
+            y = x_next @ m.C.T + m.y_ref
+            if noise is not None:
+                y = y + noise
+            A_e = A[e]
+            pred = EKFState(mv(A_e, ekf.x) + mv(Bm[e], u) + d[e],
+                            A_e @ ekf.Sigma @ A_e.transpose(-1, -2) + self.W)
+            ekf = ekf_correct(m, pred, y, self.V)
+            z = x_next @ m.H.T + m.z_ref
+            return x_next, ekf, z, u
 
     def _draw_noise(self, n_windows: int, Bsz: int, generator=None):
         """Standard normal measurement noise (n_windows, N_replan, B, n_y)
@@ -399,31 +410,34 @@ class BatchMPC:
         n_var, n_con = self._qp_dims()
 
         def run(x_plant0, ekf_x0, z_target, noise=None, generator=None):
-            t = lambda a: as_tensor(a, dt, dev)
-            x_p, x_e, z_target = t(x_plant0), t(ekf_x0), t(z_target)
-            Bsz = x_p.shape[0]
-            if noise_std > 0:
-                if noise is None:
-                    noise = self._draw_noise(n_win, Bsz, generator)
-                noise = noise_std * t(noise)
-            eye = torch.eye(self.n_x, dtype=dt, device=dev)
-            ekf = EKFState(x_e, eye.expand(Bsz, -1, -1))
-            x_plan = x_e[:, None].expand(-1, N + 1, -1)
-            u_plan = torch.zeros((Bsz, N, self.n_u), dtype=dt, device=dev)
-            warm = (torch.zeros((Bsz, n_var), dtype=dt, device=dev),
-                    torch.zeros((Bsz, n_con), dtype=dt, device=dev))
-            zs, us = [], []
-            for w in range(n_win):
-                # replan from the current belief
-                x_plan, u_plan, warm = self._mpc_query_batched(
-                    ekf.x, x_plan, u_plan, z_target[:, w], warm, fused)
-                for k in range(N_rep):
-                    x_p, ekf, z, u = self._tick(
-                        x_p, ekf, x_plan, u_plan, k,
-                        None if noise_std <= 0 else noise[w, k])
-                    zs.append(z)
-                    us.append(u)
-            return {"z": torch.stack(zs, dim=1), "u": torch.stack(us, dim=1)}
+            with span("mpc.call"):
+                t = lambda a: as_tensor(a, dt, dev)
+                x_p, x_e, z_target = t(x_plant0), t(ekf_x0), t(z_target)
+                Bsz = x_p.shape[0]
+                if noise_std > 0:
+                    if noise is None:
+                        noise = self._draw_noise(n_win, Bsz, generator)
+                    noise = noise_std * t(noise)
+                eye = torch.eye(self.n_x, dtype=dt, device=dev)
+                ekf = EKFState(x_e, eye.expand(Bsz, -1, -1))
+                x_plan = x_e[:, None].expand(-1, N + 1, -1)
+                u_plan = torch.zeros((Bsz, N, self.n_u), dtype=dt,
+                                     device=dev)
+                warm = (torch.zeros((Bsz, n_var), dtype=dt, device=dev),
+                        torch.zeros((Bsz, n_con), dtype=dt, device=dev))
+                zs, us = [], []
+                for w in range(n_win):
+                    # replan from the current belief
+                    x_plan, u_plan, warm = self._mpc_query_batched(
+                        ekf.x, x_plan, u_plan, z_target[:, w], warm, fused)
+                    for k in range(N_rep):
+                        x_p, ekf, z, u = self._tick(
+                            x_p, ekf, x_plan, u_plan, k,
+                            None if noise_std <= 0 else noise[w, k])
+                        zs.append(z)
+                        us.append(u)
+                return {"z": torch.stack(zs, dim=1),
+                        "u": torch.stack(us, dim=1)}
 
         return run
 

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from soft_robot_control_tpu_torch.utils.device import as_tensor
+from soft_robot_control_tpu_torch.utils.timing import span
 
 
 class EKFState(NamedTuple):
@@ -37,18 +38,19 @@ def ekf_predict(model, state: EKFState, u, dt, W) -> EKFState:
 def ekf_correct(model, state: EKFState, y, V) -> EKFState:
     """Measurement update. `y` (..., n_y) is the full-order measurement; it
     is shifted to reduced coordinates by the model's y_ref."""
-    C = model.C
-    Sig = state.Sigma
-    y_red = y - model.y_ref
-    S = C @ Sig @ C.T + V
-    # K = Sigma C' S^-1, solved as S' K' = C Sigma'
-    K = torch.linalg.solve(S.transpose(-1, -2),
-                           C @ Sig.transpose(-1, -2)).transpose(-1, -2)
-    x_new = state.x + (K @ (y_red - state.x @ C.T)[..., None])[..., 0]
-    I = torch.eye(state.x.shape[-1], dtype=state.x.dtype,
-                  device=state.x.device)
-    Sigma_new = (I - K @ C) @ Sig
-    return EKFState(x_new, Sigma_new)
+    with span("ekf.correct"):
+        C = model.C
+        Sig = state.Sigma
+        y_red = y - model.y_ref
+        S = C @ Sig @ C.T + V
+        # K = Sigma C' S^-1, solved as S' K' = C Sigma'
+        K = torch.linalg.solve(S.transpose(-1, -2),
+                               C @ Sig.transpose(-1, -2)).transpose(-1, -2)
+        x_new = state.x + (K @ (y_red - state.x @ C.T)[..., None])[..., 0]
+        I = torch.eye(state.x.shape[-1], dtype=state.x.dtype,
+                      device=state.x.device)
+        Sigma_new = (I - K @ C) @ Sig
+        return EKFState(x_new, Sigma_new)
 
 
 def ekf_update(model, state: EKFState, u, y, dt, W, V) -> EKFState:

@@ -24,6 +24,7 @@ from soft_robot_control_tpu_torch.core import discretize as disc
 from soft_robot_control_tpu_torch.core.packing import qv2x, x2qv
 from soft_robot_control_tpu_torch.rom.pod import POD
 from soft_robot_control_tpu_torch.utils.device import as_tensor
+from soft_robot_control_tpu_torch.utils.timing import span
 
 DISCR_METHOD_DEFAULT = "fe"
 TPWL_METHOD_DEFAULT = "nn"
@@ -372,22 +373,23 @@ def rollout_batch(model: TPWLModel, x0, u, dt, select: str = "auto",
     if select in ("matmul", "pallas") and not use_cache:
         raise ValueError(f"select='{select}' needs the pre-discretized nn "
                          "cache at this dt")
-    X = x0.to(model.q.dtype)
-    u = u.to(model.q.dtype)
-    xs = [X]
-    for k in range(u.shape[1]):
-        if select == "weighting":
-            A, B, d = model._blend(model.calc_weighting_factors(X), dt)
-        elif select == "matmul":
-            i = torch.argmin(_batch_distances(model, X), dim=1)
-            A, B, d = model.A_d[i], model.B_d[i], model.d_d[i]
-        elif use_cache:
-            _, A, B, d = model.select(X)
-        else:
-            A, B, d = model.get_jacobians(X, dt=dt)
-        X = TPWLModel.update_dynamics(X, u[:, k], A, B, d)
-        xs.append(X)
-    return torch.stack(xs, dim=1)
+    with span("tpwl.rollout"):
+        X = x0.to(model.q.dtype)
+        u = u.to(model.q.dtype)
+        xs = [X]
+        for k in range(u.shape[1]):
+            if select == "weighting":
+                A, B, d = model._blend(model.calc_weighting_factors(X), dt)
+            elif select == "matmul":
+                i = torch.argmin(_batch_distances(model, X), dim=1)
+                A, B, d = model.A_d[i], model.B_d[i], model.d_d[i]
+            elif use_cache:
+                _, A, B, d = model.select(X)
+            else:
+                A, B, d = model.get_jacobians(X, dt=dt)
+            X = TPWLModel.update_dynamics(X, u[:, k], A, B, d)
+            xs.append(X)
+        return torch.stack(xs, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,8 @@ over a cluster); `admm_cluster` and `admm_stream` are the second and third
 kernel's own wrappers. All launch their kernel for CUDA tensors (float32 or
 float64) and run `admm_batched_plain`, the same arithmetic in PyTorch, only
 for CPU tensors. `admm_batched.launches`, `admm_cluster.launches` and
-`admm_stream.launches` count the launches of the three kernels.
+`admm_stream.launches` count the launches of the three kernels; each launch
+is the span `qp.admm` (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import ctypes
 import torch
 
 from soft_robot_control_tpu_torch.ops import build
+from soft_robot_control_tpu_torch.utils.timing import span
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _MAX_CLUSTER = 8      # blocks of the largest portable cluster
@@ -279,20 +281,21 @@ def _launch(wrapper, lib, args, iters, sigma, alpha, *extra):
     name = wrapper.__name__
     Kinv, A = args[0], args[1]
     B, n, m, dt = Kinv.shape[0], Kinv.shape[1], A.shape[1], Kinv.dtype
-    w = torch.empty((B, n), dtype=dt, device=Kinv.device)
-    y = torch.empty((B, m), dtype=dt, device=Kinv.device)
-    stream = torch.cuda.current_stream(Kinv.device).cuda_stream
-    rc = getattr(lib, name + _SUFFIX[dt])(
-        *[t.data_ptr() for t in args], w.data_ptr(), y.data_ptr(),
-        B, n, m, int(iters), float(sigma), float(alpha), *extra, stream)
-    if rc == -1:
-        raise ValueError(f"{name}: a QP with n={n}, m={m} needs more shared "
-                         f"memory than the kernel has ({_SMEM_LIMIT} bytes a "
-                         "block)")
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    wrapper.launches += 1
-    return w, y
+    with span("qp.admm"):
+        w = torch.empty((B, n), dtype=dt, device=Kinv.device)
+        y = torch.empty((B, m), dtype=dt, device=Kinv.device)
+        stream = torch.cuda.current_stream(Kinv.device).cuda_stream
+        rc = getattr(lib, name + _SUFFIX[dt])(
+            *[t.data_ptr() for t in args], w.data_ptr(), y.data_ptr(),
+            B, n, m, int(iters), float(sigma), float(alpha), *extra, stream)
+        if rc == -1:
+            raise ValueError(f"{name}: a QP with n={n}, m={m} needs more "
+                             f"shared memory than the kernel has "
+                             f"({_SMEM_LIMIT} bytes a block)")
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        wrapper.launches += 1
+        return w, y
 
 
 def admm_stream(Kinv, A, q, l, u, rho_vec, w0, y0, iters: int,

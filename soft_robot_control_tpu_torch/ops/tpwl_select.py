@@ -17,6 +17,7 @@ compared (the plain version's from `point_distances_batch`): a select over
 a dictionary split along its points (parallel/mesh.py) reduces the parts'
 minima by it. Each value depends on its state and point alone, so that
 reduction, ties to the lowest part, gives the whole dictionary's index.
+Every call is the span `tpwl.select` (utils/timing.py), on either path.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import ctypes
 import torch
 
 from soft_robot_control_tpu_torch.ops import build
+from soft_robot_control_tpu_torch.utils.timing import span
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _FN = {torch.float32: "tpwl_select_f32", torch.float64: "tpwl_select_f64"}
@@ -114,13 +116,14 @@ def tpwl_select(x, q_pts, v_pts, A_d, B_d, d_d, dist_w_q, dist_w_v,
     if not 0 <= k <= x.shape[0]:
         raise ValueError(f"tpwl_select: index_only={k} outside "
                          f"[0, {x.shape[0]}]")
-    if x.device.type == "cpu":
-        return tpwl_select_plain(x, q_pts, v_pts, A_d, B_d, d_d, dist_w_q,
-                                 dist_w_v, k, distances)
-    if x.device.type != "cuda":
-        raise ValueError(f"tpwl_select: unsupported device {x.device}")
-    return _launch(x, q_pts, v_pts, A_d, B_d, d_d, dist_w_q, dist_w_v, k,
-                   distances)
+    with span("tpwl.select"):
+        if x.device.type == "cpu":
+            return tpwl_select_plain(x, q_pts, v_pts, A_d, B_d, d_d,
+                                     dist_w_q, dist_w_v, k, distances)
+        if x.device.type != "cuda":
+            raise ValueError(f"tpwl_select: unsupported device {x.device}")
+        return _launch(x, q_pts, v_pts, A_d, B_d, d_d, dist_w_q, dist_w_v,
+                       k, distances)
 
 
 tpwl_select.launches = 0

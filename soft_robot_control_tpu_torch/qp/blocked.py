@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from soft_robot_control_tpu_torch.utils.timing import span
+
 
 def tri_inv_blocked(L, leaf: int = 64):
     """Inverse of the lower-triangular L (..., n, n) by a batched
@@ -31,14 +33,16 @@ def chol_blocked(K, leaf: int = 64):
 def make_kinv(P, A, rho_vec, sigma=1e-6):
     """K^-1 of K = P + sigma I + A' diag(rho) A for a batch: P (B,n,n),
     A (B,m,n), rho_vec (m,) or (B,m). Returns (B,n,n)."""
-    n = P.shape[-1]
-    I = torch.eye(n, dtype=P.dtype, device=P.device)
-    rho = rho_vec if rho_vec.dim() == A.dim() - 1 else rho_vec[None]
-    K = P + sigma * I + (A.transpose(-1, -2) * rho[..., None, :]) @ A
-    d = torch.rsqrt(torch.diagonal(K, dim1=-2, dim2=-1))
-    Ks = K * d[..., :, None] * d[..., None, :]
-    Ls = torch.linalg.cholesky(Ks)
-    Linv = torch.linalg.solve_triangular(Ls, I.expand_as(Ls), upper=False)
-    Linv = Linv @ (2.0 * I - Ls @ Linv)
-    M1 = Linv * d[..., None, :]
-    return M1.transpose(-1, -2) @ M1
+    with span("qp.kinv"):
+        n = P.shape[-1]
+        I = torch.eye(n, dtype=P.dtype, device=P.device)
+        rho = rho_vec if rho_vec.dim() == A.dim() - 1 else rho_vec[None]
+        K = P + sigma * I + (A.transpose(-1, -2) * rho[..., None, :]) @ A
+        d = torch.rsqrt(torch.diagonal(K, dim1=-2, dim2=-1))
+        Ks = K * d[..., :, None] * d[..., None, :]
+        Ls = torch.linalg.cholesky(Ks)
+        Linv = torch.linalg.solve_triangular(Ls, I.expand_as(Ls),
+                                             upper=False)
+        Linv = Linv @ (2.0 * I - Ls @ Linv)
+        M1 = Linv * d[..., None, :]
+        return M1.transpose(-1, -2) @ M1

@@ -27,9 +27,10 @@ package:
   x_step='chol'. These QP solvers are plain PyTorch, as they are XLA in the
   JAX package.
 - `solve_batch_fused`: `max_iters` lockstep iterations with masks and no
-  host read. Every iteration solves all B LOCPs in one launch of the
-  batched ADMM kernel (ops/admm_batched.py) with one shared rho row, no
-  Ruiz scaling and no residual gate.
+  host read of its own (K^-1's `torch.linalg.cholesky` checks its errors
+  on the host once an iteration). Every iteration solves all B LOCPs in
+  one launch of the batched ADMM kernel (ops/admm_batched.py) with one
+  shared rho row, no Ruiz scaling and no residual gate.
 On a TPWL model each iteration also makes two launches of the select
 kernel: the discrete rows along the linearization trajectory, and the
 continuous rows at the new and the old trajectory for the accuracy ratio.
@@ -59,6 +60,7 @@ from soft_robot_control_tpu_torch.scp.locp import LOCPParams, LOCPSpec
 from soft_robot_control_tpu_torch.scp.locp_condensed import (CondensedParams,
                                                              CondensedSpec)
 from soft_robot_control_tpu_torch.utils.device import as_tensor
+from soft_robot_control_tpu_torch.utils.timing import span
 
 
 class GuSTOJitResult(NamedTuple):
@@ -159,9 +161,11 @@ class GuSTOJit:
         Ad, Bd, dd = self._lin_d(x_k[:, :-1], u_k)
         ok = torch.ones(B, dtype=torch.bool, device=self.device)
         if self.formulation == "condensed":
-            P, q, A, l, u_b, const, xfree, G = self.cspec.assemble(
-                CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z, u_des=u_des,
-                                xk=x_k, delta=delta, omega=omega))
+            with span("qp.assemble"):
+                P, q, A, l, u_b, const, xfree, G = self.cspec.assemble(
+                    CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z,
+                                    u_des=u_des, xk=x_k, delta=delta,
+                                    omega=omega))
             if fused:
                 Kinv = make_kinv(P, A, self.rho_vec_c)
                 w, y = admm_batched(Kinv, A, q, l, u_b, self.rho_vec_c,
@@ -173,9 +177,10 @@ class GuSTOJit:
         else:
             zeros = lambda *s: torch.zeros((B,) + s, dtype=self.dtype,
                                            device=self.device)
-            P, q, A, l, u_b, const = self.spec.assemble(LOCPParams(
-                Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_k, delta=delta, omega=omega,
-                z=z, zf=zeros(self.n_z), u_des=u_des))
+            with span("qp.assemble"):
+                P, q, A, l, u_b, const = self.spec.assemble(LOCPParams(
+                    Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_k, delta=delta,
+                    omega=omega, z=z, zf=zeros(self.n_z), u_des=u_des))
             if fused:
                 w, y = admm_batched(make_kinv(P, A, self.rho_vec), A, q, l,
                                     u_b, self.rho_vec, warm[0], warm[1],
@@ -231,50 +236,55 @@ class GuSTOJit:
         """One SCP iteration of every problem. `fused`: the lockstep form
         (masks from `active`, no residual gate); else the while-loop body,
         whose caller freezes the problems that are done."""
-        (x_k, u_k, delta, omega, Jp, dp, op, itr, conv, warm, J_last) = c
-        p = self.p
-        x_n, u_n, J, warm_n, qp_ok = self._qp(x_k, u_k, x0, z, u_des, delta,
-                                              omega, warm, fused)
-        dx = self.x_scale * (x_n - x_k)
-        tr_ok = (dx.abs().amax(dim=(1, 2)) - delta) <= p["epsilon"]
-        rho_k = self._accuracy(x_n, u_n, x_k, u_k, J)
-        rho_bad = (rho_k > p["rho"]) & (itr != 1)
-        mod1 = (dp == delta) & (op == omega) & (Jp <= J)
-        if self.X is not None:
-            X_ok = self.X.violation(x_n[:, 1:]).amax(dim=1) <= p["epsilon"]
-        else:
-            X_ok = torch.ones_like(tr_ok)
-        dsol = torch.linalg.vector_norm(dx, dim=2).sum(dim=1) / (
-            self.n_x * self.N)
-        where = torch.where
-        if fused:
-            active = self._active(c)
-            accept = active & tr_ok & ~rho_bad
-            shrink = active & tr_ok & rho_bad
-            grow = active & ~tr_ok
-            conv_new = where(active, accept & (dsol <= p["convg_thresh"])
-                             & X_ok, conv)
-            itr_new = itr + active.to(itr.dtype)
-            carry_warm = accept
-        else:
-            # an unsolved QP is no SCP step: (x_k, delta, omega) stay and the
-            # next iteration re-solves the same QP from where ADMM stopped
-            accept = tr_ok & ~rho_bad & qp_ok
-            shrink = tr_ok & rho_bad & qp_ok
-            grow = ~tr_ok & qp_ok
-            conv_new = accept & (dsol <= p["convg_thresh"]) & X_ok
-            itr_new = itr + 1
-            carry_warm = accept | ~qp_ok
-        delta_new = where(shrink, p["beta_fail"] * delta,
-                          where(accept & mod1, p["beta_fail"] * delta, delta))
-        omega_new = where(grow, p["gamma_fail"] * omega,
-                          where(accept & ~X_ok, p["gamma_fail"] * omega,
-                                omega))
-        return (_sel(accept, x_n, x_k), _sel(accept, u_n, u_k), delta_new,
-                omega_new, where(accept, J, Jp), where(accept, delta, dp),
-                where(accept, omega, op), itr_new, conv_new,
-                tuple(_sel(carry_warm, a, b) for a, b in zip(warm_n, warm)),
-                where(accept, J, J_last))
+        with span("gusto.iteration"):
+            (x_k, u_k, delta, omega, Jp, dp, op, itr, conv, warm, J_last) = c
+            p = self.p
+            x_n, u_n, J, warm_n, qp_ok = self._qp(x_k, u_k, x0, z, u_des,
+                                                  delta, omega, warm, fused)
+            dx = self.x_scale * (x_n - x_k)
+            tr_ok = (dx.abs().amax(dim=(1, 2)) - delta) <= p["epsilon"]
+            rho_k = self._accuracy(x_n, u_n, x_k, u_k, J)
+            rho_bad = (rho_k > p["rho"]) & (itr != 1)
+            mod1 = (dp == delta) & (op == omega) & (Jp <= J)
+            if self.X is not None:
+                X_ok = (self.X.violation(x_n[:, 1:]).amax(dim=1)
+                        <= p["epsilon"])
+            else:
+                X_ok = torch.ones_like(tr_ok)
+            dsol = torch.linalg.vector_norm(dx, dim=2).sum(dim=1) / (
+                self.n_x * self.N)
+            where = torch.where
+            if fused:
+                active = self._active(c)
+                accept = active & tr_ok & ~rho_bad
+                shrink = active & tr_ok & rho_bad
+                grow = active & ~tr_ok
+                conv_new = where(active, accept & (dsol <= p["convg_thresh"])
+                                 & X_ok, conv)
+                itr_new = itr + active.to(itr.dtype)
+                carry_warm = accept
+            else:
+                # an unsolved QP is no SCP step: (x_k, delta, omega) stay and
+                # the next iteration re-solves the same QP from where ADMM
+                # stopped
+                accept = tr_ok & ~rho_bad & qp_ok
+                shrink = tr_ok & rho_bad & qp_ok
+                grow = ~tr_ok & qp_ok
+                conv_new = accept & (dsol <= p["convg_thresh"]) & X_ok
+                itr_new = itr + 1
+                carry_warm = accept | ~qp_ok
+            delta_new = where(shrink, p["beta_fail"] * delta,
+                              where(accept & mod1, p["beta_fail"] * delta,
+                                    delta))
+            omega_new = where(grow, p["gamma_fail"] * omega,
+                              where(accept & ~X_ok, p["gamma_fail"] * omega,
+                                    omega))
+            return (_sel(accept, x_n, x_k), _sel(accept, u_n, u_k), delta_new,
+                    omega_new, where(accept, J, Jp), where(accept, delta, dp),
+                    where(accept, omega, op), itr_new, conv_new,
+                    tuple(_sel(carry_warm, a, b)
+                          for a, b in zip(warm_n, warm)),
+                    where(accept, J, J_last))
 
     def _active(self, c):
         omega, itr, conv = c[3], c[7], c[8]
@@ -339,15 +349,17 @@ class GuSTOJit:
 
     def solve_batch_fused(self, x0, u_init, x_init, z, u_des=None):
         """Batch GuSTO in `max_iters` lockstep iterations, each one launch
-        of the batched ADMM kernel for all B LOCPs; no host read until the
-        caller reads the result."""
-        x0, u_init, x_init, z, u_des = self._inputs(x0, u_init, x_init, z,
-                                                    u_des)
-        c = self._carry0(u_init, x_init)
-        for _ in range(self.max_iters):
-            c = self._iteration(c, x0, z, u_des, fused=True)
-        return GuSTOJitResult(x=c[0], u=c[1], iters=c[7], converged=c[8],
-                              J=c[10])
+        of the batched ADMM kernel for all B LOCPs; no host read of its own
+        (`make_kinv`'s Cholesky checks its errors on the host once an
+        iteration)."""
+        with span("gusto.call"):
+            x0, u_init, x_init, z, u_des = self._inputs(x0, u_init, x_init,
+                                                        z, u_des)
+            c = self._carry0(u_init, x_init)
+            for _ in range(self.max_iters):
+                c = self._iteration(c, x0, z, u_des, fused=True)
+            return GuSTOJitResult(x=c[0], u=c[1], iters=c[7],
+                                  converged=c[8], J=c[10])
 
 
 def _sel(mask, a, b):

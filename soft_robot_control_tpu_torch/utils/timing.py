@@ -6,7 +6,12 @@ solve times (SURVEY.md section 5). Here, as in the JAX package:
 - `trace(log_dir)`: a torch.profiler trace of the host and, where there is
   a card, the device, written to log_dir (TensorBoard / Perfetto);
 - `block_time(fn, *args)`: wall seconds of one call until the devices that
-  hold its output have finished the work queued on them.
+  hold its output have finished the work queued on them;
+- `span(name)`: a named range of the program's own layers (an MPC window,
+  a GuSTO iteration, a K^-1 build) in the profiler's timeline, beside the
+  device operations it launched and on their clock. Spans are off unless
+  `spans()` or `trace()` turns them on; off, a span costs one test of a
+  flag and touches neither torch nor the device.
 """
 
 from __future__ import annotations
@@ -52,21 +57,49 @@ class Timer:
         return out[name] if name else out
 
 
+_spans_on = False
+_OFF = contextlib.nullcontext()  # the one context every span gives when off
+
+
+def span(name: str):
+    """A context manager that marks its body as the span `name`: with spans
+    on, a `torch.profiler.record_function` range, whose parent in the
+    timeline is the innermost span around it on the same thread; with
+    spans off, a shared context that does nothing."""
+    if not _spans_on:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans(on: bool = True):
+    """Turn spans on (or off) for the body; the previous state comes back
+    on exit."""
+    global _spans_on
+    prev, _spans_on = _spans_on, bool(on)
+    try:
+        yield
+    finally:
+        _spans_on = prev
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a torch.profiler trace (host, and the card's kernels where
-    CUDA is available) into log_dir as a TensorBoard trace file."""
+    CUDA is available) into log_dir as a TensorBoard trace file, with the
+    program's spans on: its layers show beside the kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(
         activities=acts,
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
-    prof.start()
-    try:
-        yield prof
-    finally:
-        prof.stop()
+    with spans():
+        prof.start()
+        try:
+            yield prof
+        finally:
+            prof.stop()
 
 
 def _devices(out, found):
