@@ -24,6 +24,11 @@ does:
    estimate only: at the plan point only the index (the DARE gain) is
    used.
 
+On a card, `build_fused` replays the bodies of steps 3-5 (all but the
+selects, the ADMM launches and the window's own operations) as CUDA
+graphs from its second call at a batch size on (`StageGraphs`), and reads
+the factorizations' error flag once a call, at its end.
+
 The semantics are those of the JAX package's BatchMPC (real-time mode:
 one LOCP per query, plan feedback with per-point DARE gains).
 
@@ -35,6 +40,8 @@ and runs N_replan feedforward ticks behind the manifold observer.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -54,7 +61,7 @@ from soft_robot_control_tpu_torch.scp.locp import LOCPParams, LOCPSpec
 from soft_robot_control_tpu_torch.scp.locp_condensed import (CondensedParams,
                                                              CondensedSpec)
 from soft_robot_control_tpu_torch.utils.device import as_tensor, resolve_device
-from soft_robot_control_tpu_torch.utils.timing import span
+from soft_robot_control_tpu_torch.utils.timing import span, spans
 
 
 def admm_fixed(P, q, A, l, u, w0, y0, rho_vec, iters: int, sigma=1e-6,
@@ -139,31 +146,47 @@ def _rho_multiplier(P, q, A, l, u, w, y):
     return torch.sqrt((pri / pri_sc) / torch.clamp(dua / dua_sc, min=1e-18))
 
 
+def _rebalanced(P, q, A, l, u, w, y, rho):
+    """Each QP's per-row rho after a rho stage, from its residual ratio."""
+    with span("qp.rho"):
+        mult = _rho_multiplier(P, q, A, l, u, w, y)
+        return torch.clamp(rho * mult[:, None], RHO_MIN, RHO_MAX)
+
+
+def _run(name, body, *inputs):
+    """A stage body run as it is, in the span it opens itself: the stage
+    runner of every loop but the batch-fused one (StageGraphs)."""
+    return body(*inputs)
+
+
 def admm_staged_batched(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
-                        stages: int, sigma=1e-6, alpha=1.6):
+                        stages: int, sigma=1e-6, alpha=1.6, info=None,
+                        stage=_run):
     """Fixed-total-iteration ADMM in `stages` launches of the batched
     kernel, re-balancing each QP's rho between stages.
 
     The kernel takes one shared rho row, but after the first rebalance each
     QP wants its own. A per-row rho is equivalent to scaling row i of the
     constraints by sqrt(rho_i) at unit rho, so the rho is folded into
-    A/l/u/y and the kernel always runs at rho = 1."""
+    A/l/u/y and the kernel always runs at rho = 1.
+
+    info: as for make_kinv. stage(name, body, *tensors): the runner of the
+    K^-1 builds and the rebalances (StageGraphs in the batch-fused loop)."""
     Bsz, m = l.shape
     per = max(1, iters // stages)
     rho = rho0_vec.expand(Bsz, m)
     ones = torch.ones(m, dtype=q.dtype, device=q.device)
+    kinv = lambda P, As, ones, info: make_kinv(P, As, ones, sigma, info)
     w, y = w0, y0
     for s in range(stages):
         srt = torch.sqrt(rho)
         As = A * srt[:, :, None]
-        Kinv = make_kinv(P, As, ones, sigma)
+        Kinv = stage("qp.kinv", kinv, P, As, ones, info)
         w, ys = admm_batched(Kinv, As, q, srt * l, srt * u, ones, w, y / srt,
                              per, sigma, alpha)
         y = srt * ys
         if s < stages - 1:
-            with span("qp.rho"):
-                mult = _rho_multiplier(P, q, A, l, u, w, y)
-                rho = torch.clamp(rho * mult[:, None], RHO_MIN, RHO_MAX)
+            rho = stage("qp.rho", _rebalanced, P, q, A, l, u, w, y, rho)
     return w, y
 
 
@@ -175,6 +198,130 @@ def admm_staged_pallas(P, q, A, l, u, w0, y0, rho0_vec, iters: int,
     no meaning here and is ignored."""
     return admm_staged_batched(P, q, A, l, u, w0, y0, rho0_vec, iters,
                                stages, sigma, alpha)
+
+
+def _same(a, b) -> bool:
+    """Whether tensors a and b are one view of one memory."""
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+class StageGraphs:
+    """The stage runner of the batch-fused loop at one batch size on one
+    device: the bodies of the QP build's and the ticks' spans (`qp.assemble`,
+    `qp.ruiz`, `qp.kinv`, `qp.rho`, `qp.recover`, the part of `mpc.tick`
+    after its select, `ekf.correct`), each a function of tensors (or None)
+    that gives a tuple of tensors or a tensor. A stage's name is the span
+    its body opens when it runs as it is, and the span a replay runs in;
+    None for the tick's body, which runs in its caller's `mpc.tick`.
+
+    On a card the loop's first call runs the bodies as they are, which
+    warms the libraries; the second captures each body as a CUDA graph the
+    first time it meets it (after one run on a side stream) and replays
+    it; later calls replay. A replay first copies each input into the
+    graph's own copy of it, unless the input is the output of a graph of
+    this runner that the graph read when it was captured. It gives the
+    graph's outputs, which its next replay overwrites: each is consumed, or
+    cloned, before that. The select, the ADMM launches and the window's own
+    operations run between the replays as they are. A stage's body is the
+    same function of its inputs at every use of its name; a name with
+    inputs of other shapes, or None where there was a tensor, is another
+    graph. On the CPU the bodies run as they are, always.
+
+    `info` is the loop's deferred error flag (make_kinv, ekf_correct),
+    cleared by `begin` at the start of each call and read once, by
+    `check`, at its end.
+
+    `replays` and `eager` count the stage bodies that the process has run
+    as a graph replay, and as they are on a card (the warm-up calls and
+    the side-stream runs before a capture)."""
+
+    replays = 0
+    eager = 0
+
+    def __init__(self, device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.calls = 0
+        self.graphs = {}     # key -> (graph, static inputs, outputs)
+        self.outputs = []    # every captured graph's outputs
+        self.info = torch.zeros((), dtype=torch.bool, device=device)
+        self.outputs.append(self.info)
+        self.side = None
+
+    def begin(self):
+        self.info.zero_()
+        self.calls += 1
+
+    def check(self):
+        """Raises torch.linalg.LinAlgError if a factorization of the call
+        failed: the call's one host read."""
+        if bool(self.info):
+            raise torch.linalg.LinAlgError(
+                "batch-fused MPC: a QP's K (qp.kinv) or an EKF innovation "
+                "covariance (ekf.correct) was not positive definite in "
+                "this call")
+
+    def __call__(self, name, body, *inputs):
+        if not self.cuda:
+            return body(*inputs)
+        if self.calls < 2:
+            StageGraphs.eager += 1
+            return body(*inputs)
+        key = (name,) + tuple(None if t is None else (tuple(t.shape), t.dtype)
+                              for t in inputs)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(body, inputs)
+        graph, static, shared, out = entry
+        with span(name) if name else contextlib.nullcontext():
+            for s, t, sh in zip(static, inputs, shared):
+                if t is s or t is None:
+                    continue
+                if not sh:
+                    s.copy_(t)
+                elif not _same(s, t):
+                    raise RuntimeError(
+                        f"stage {name}: its graph reads another graph's "
+                        "output, and was given another tensor")
+            self._replay(graph)
+        StageGraphs.replays += 1
+        return out
+
+    def _capture(self, body, inputs):
+        """(graph, static inputs, which of them are other graphs' outputs,
+        outputs) of `body` on copies of `inputs`."""
+        static, shared = [], []
+        for t in inputs:
+            o = None if t is None else next(
+                (o for o in self.outputs if _same(o, t)), None)
+            shared.append(o is not None)
+            static.append(o if t is None or o is not None
+                          else torch.empty_like(t).copy_(t))
+        graph, out = self._graph(body, static)
+        flat = out if isinstance(out, tuple) else (out,)
+        self.outputs += [o for o in flat if torch.is_tensor(o)]
+        return graph, static, shared, out
+
+    def _graph(self, body, static):
+        """body(*static) captured as a CUDA graph after one run on a side
+        stream: (graph, its outputs)."""
+        with torch.cuda.device(self.device):
+            if self.side is None:
+                self.side = torch.cuda.Stream()
+            self.side.wait_stream(torch.cuda.current_stream())
+            with spans(False), torch.cuda.stream(self.side):
+                body(*static)
+            StageGraphs.eager += 1
+            torch.cuda.current_stream().wait_stream(self.side)
+            graph = torch.cuda.CUDAGraph()
+            with spans(False), torch.cuda.graph(graph):
+                out = body(*static)
+        return graph, out
+
+    def _replay(self, graph):
+        with torch.cuda.device(self.device):
+            graph.replay()
 
 
 class BatchMPC:
@@ -271,6 +418,13 @@ class BatchMPC:
         # devices), and every nearest-point fetch goes through it
         self._mp = None
         self._run = None
+        # the batch-fused loop's stage runners by (device, B), and the
+        # running call's runner and deferred error flag for `_tick`
+        self._stages = {}
+        self._tick_stage = (_run, None)
+        # GuSTO's trust-region radius and slack weight as tensors: a graph
+        # captures no host-to-device copy of a number
+        self._tr = (t(self.delta0), t(self.omega0))
 
     # ------------------------------------------------------------------
     def _shift_plan(self, x_plan, u_plan):
@@ -308,15 +462,18 @@ class BatchMPC:
         spec = self.cspec if self.formulation == "condensed" else self.spec
         return spec.n_var, spec.n_con
 
-    def _solve_qp(self, P, q, A, l, u, w0, y0, fused: bool):
+    def _solve_qp(self, P, q, A, l, u, w0, y0, fused: bool, stage=_run,
+                  info=None):
         """The window's (already equilibrated) QPs through the solver that
         the formulation, the loop and the options select."""
         if self.formulation == "condensed":
             return admm_staged_batched(P, q, A, l, u, w0, y0, self.rho_vec_c,
-                                       self.qp_iters, self.rho_stages)
+                                       self.qp_iters, self.rho_stages,
+                                       info=info, stage=stage)
         if fused or (not self.use_pallas and self.x_step == "kinv"):
             return admm_staged_batched(P, q, A, l, u, w0, y0, self.rho_vec,
-                                       self.qp_iters, self.rho_stages)
+                                       self.qp_iters, self.rho_stages,
+                                       info=info, stage=stage)
         if self.use_pallas:
             sols = [admm_fixed_single(P[b], q[b], A[b], l[b], u[b], w0[b],
                                       y0[b], self.rho_vec, self.qp_iters)
@@ -325,74 +482,115 @@ class BatchMPC:
                     torch.stack([y for _, y in sols]))
         return admm_fixed(P, q, A, l, u, w0, y0, self.rho_vec, self.qp_iters)
 
+    def _assemble(self, Ad, Bd, dd, x0, z_win, x_plan=None):
+        """The window's QPs: (P, q, A, l, u), and the condensed
+        formulation's forward-substitution maps (xfree, G)."""
+        with span("qp.assemble"):
+            Bsz = x0.shape[0]
+            zeros = lambda *shape: torch.zeros(
+                (Bsz,) + shape, dtype=self.dtype, device=self.device)
+            if self.formulation == "condensed":
+                P, q, A, l, u, _, xfree, G = self.cspec.assemble(
+                    CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0, z=z_win,
+                                    u_des=zeros(self.N, self.n_u)))
+                return P, q, A, l, u, xfree, G
+            return self.spec.assemble(LOCPParams(
+                Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_plan, delta=self._tr[0],
+                omega=self._tr[1], z=z_win, zf=zeros(self.n_z),
+                u_des=zeros(self.N, self.n_u)))[:5]
+
+    def _equilibrate(self, P, q, A, l, u, w0, y0):
+        """equilibrate_qp with the scalings (d, e, c) flat at the end."""
+        *qp, scalings = equilibrate_qp(P, q, A, l, u, w0, y0,
+                                       self.scaling_iters)
+        return (*qp, *scalings)
+
+    def _recover(self, w, y, d_s, e_s, c_s, xfree=None, G=None):
+        """The solution unscaled (scalings None: none) and the plans it
+        gives: (x_plan, u_plan, w, y)."""
+        with span("qp.recover"):
+            if d_s is not None:
+                w = d_s * w
+                y = e_s * y / c_s[:, None]
+            if self.formulation == "condensed":
+                u_plan = w.reshape(w.shape[0], self.N, self.n_u)
+                x_plan = self.cspec.recover_x(xfree, G, w)
+            else:
+                x_plan, u_plan, _ = self.spec.split(w)
+            return x_plan, u_plan, w, y
+
     def _mpc_query_batched(self, x0, x_plan, u_plan, z_win, warm,
-                           fused: bool):
+                           fused: bool, stage=_run, info=None):
         """One LOCP solve per loop, linearized along its shifted plan.
-        z_win holds absolute targets (B, N+1, n_z)."""
+        z_win holds absolute targets (B, N+1, n_z). `stage` runs the bodies
+        of the QP build's spans; `info`: as for make_kinv."""
         with span("mpc.window"):
             x_plan, u_plan = self._shift_plan(x_plan, u_plan)
             z_win = z_win - self.model.z_ref
-            Bsz = x0.shape[0]
             condensed = self.formulation == "condensed"
-            zeros = lambda *shape: torch.zeros(
-                (Bsz,) + shape, dtype=self.dtype, device=self.device)
             for _ in range(self.scp_iters):
                 w0, y0 = warm
                 Ad, Bd, dd = self._gather_traj(x_plan)
-                with span("qp.assemble"):
-                    if condensed:
-                        P, q, A, l, u, _, xfree, G = self.cspec.assemble(
-                            CondensedParams(Ad=Ad, Bd=Bd, dd=dd, x0=x0,
-                                            z=z_win,
-                                            u_des=zeros(self.N, self.n_u)))
-                    else:
-                        P, q, A, l, u, _ = self.spec.assemble(LOCPParams(
-                            Ad=Ad, Bd=Bd, dd=dd, x0=x0, xk=x_plan,
-                            delta=self.delta0, omega=self.omega0, z=z_win,
-                            zf=zeros(self.n_z),
-                            u_des=zeros(self.N, self.n_u)))
+                qp = stage("qp.assemble", self._assemble, Ad, Bd, dd, x0,
+                           z_win, *(() if condensed else (x_plan,)))
+                P, q, A, l, u = qp[:5]
+                scalings = (None, None, None)
                 if self.scaling_iters > 0:
-                    P, q, A, l, u, w0, y0, (d_s, e_s, c_s) = equilibrate_qp(
-                        P, q, A, l, u, w0, y0, self.scaling_iters)
-                w, y = self._solve_qp(P, q, A, l, u, w0, y0, fused)
-                with span("qp.recover"):
-                    if self.scaling_iters > 0:
-                        w = d_s * w
-                        y = e_s * y / c_s[:, None]
-                    if condensed:
-                        u_plan = w.reshape(Bsz, self.N, self.n_u)
-                        x_plan = self.cspec.recover_x(xfree, G, w)
-                    else:
-                        x_plan, u_plan, _ = self.spec.split(w)
+                    P, q, A, l, u, w0, y0, *scalings = stage(
+                        "qp.ruiz", self._equilibrate, P, q, A, l, u, w0, y0)
+                w, y = self._solve_qp(P, q, A, l, u, w0, y0, fused, stage,
+                                      info)
+                x_plan, u_plan, w, y = stage("qp.recover", self._recover,
+                                             w, y, *scalings, *qp[5:])
                 warm = (w, y)
             return x_plan, u_plan, warm
 
     def _tick(self, x_p, ekf, x_plan, u_plan, k, noise):
-        """One controller tick for every loop; `noise` (B, n_y) or None."""
+        """One controller tick for every loop; `noise` (B, n_y) or None.
+        The call's runner (`_tick_stage`) runs the tick's body after its
+        select and the EKF correction, with its deferred error flag (as
+        for ekf_correct). The tick keeps its six arguments: the
+        benchmark's fault tests wrap it."""
+        stage, info = self._tick_stage
         with span("mpc.tick"):
-            m = self.model
             Bsz = x_p.shape[0]
-            mv = lambda M, v: (M @ v[..., None])[..., 0]
             x_bar, u_bar = x_plan[:, k], u_plan[:, k]
             # one select: the plan point's DARE gain, rows at the plant
             # state and the estimate only
             _, A, Bm, d, K = self._select(
                 torch.cat([x_bar, x_p, ekf.x], dim=0), index_only=Bsz,
                 gains=True)
-            u = u_bar + mv(K, ekf.x - x_bar)
-            if self.u_clamp is not None:
-                u = torch.clamp(u, self.u_clamp[0], self.u_clamp[1])
-            p, e = slice(0, Bsz), slice(Bsz, 2 * Bsz)
-            x_next = mv(A[p], x_p) + mv(Bm[p], u) + d[p]
-            y = x_next @ m.C.T + m.y_ref
-            if noise is not None:
-                y = y + noise
-            A_e = A[e]
-            pred = EKFState(mv(A_e, ekf.x) + mv(Bm[e], u) + d[e],
-                            A_e @ ekf.Sigma @ A_e.transpose(-1, -2) + self.W)
-            ekf = ekf_correct(m, pred, y, self.V)
-            z = x_next @ m.H.T + m.z_ref
+            x_next, z, u, y, x_pred, S_pred = stage(
+                None, self._tick_body, A, Bm, d, K, x_p, ekf.x, ekf.Sigma,
+                x_bar, u_bar, noise)
+            ekf = EKFState(*stage("ekf.correct", self._correct, x_pred,
+                                  S_pred, y, info))
             return x_next, ekf, z, u
+
+    def _tick_body(self, A, Bm, d, K, x_p, x_e, Sigma, x_bar, u_bar, noise):
+        """A tick after its select: the command, the plant step, the
+        measurement, the EKF prediction and the output,
+        (x_next, z, u, y, x_pred, Sigma_pred)."""
+        m = self.model
+        Bsz = x_p.shape[0]
+        mv = lambda M, v: (M @ v[..., None])[..., 0]
+        u = u_bar + mv(K, x_e - x_bar)
+        if self.u_clamp is not None:
+            u = torch.clamp(u, self.u_clamp[0], self.u_clamp[1])
+        p, e = slice(0, Bsz), slice(Bsz, 2 * Bsz)
+        x_next = mv(A[p], x_p) + mv(Bm[p], u) + d[p]
+        y = x_next @ m.C.T + m.y_ref
+        if noise is not None:
+            y = y + noise
+        A_e = A[e]
+        x_pred = mv(A_e, x_e) + mv(Bm[e], u) + d[e]
+        S_pred = A_e @ Sigma @ A_e.transpose(-1, -2) + self.W
+        z = x_next @ m.H.T + m.z_ref
+        return x_next, z, u, y, x_pred, S_pred
+
+    def _correct(self, x, Sigma, y, info):
+        return tuple(ekf_correct(self.model, EKFState(x, Sigma), y, self.V,
+                                 info))
 
     def _draw_noise(self, n_windows: int, Bsz: int, generator=None):
         """Standard normal measurement noise (n_windows, N_replan, B, n_y)
@@ -414,6 +612,15 @@ class BatchMPC:
                 t = lambda a: as_tensor(a, dt, dev)
                 x_p, x_e, z_target = t(x_plant0), t(ekf_x0), t(z_target)
                 Bsz = x_p.shape[0]
+                # the call's stage runner and deferred error flag
+                stage, info = _run, None
+                if fused:
+                    stage = self._stages.get((dev, Bsz))
+                    if stage is None:
+                        stage = self._stages[dev, Bsz] = StageGraphs(dev)
+                    stage.begin()
+                    info = stage.info
+                self._tick_stage = (stage, info)
                 if noise_std > 0:
                     if noise is None:
                         noise = self._draw_noise(n_win, Bsz, generator)
@@ -429,13 +636,17 @@ class BatchMPC:
                 for w in range(n_win):
                     # replan from the current belief
                     x_plan, u_plan, warm = self._mpc_query_batched(
-                        ekf.x, x_plan, u_plan, z_target[:, w], warm, fused)
+                        ekf.x, x_plan, u_plan, z_target[:, w], warm, fused,
+                        stage, info)
                     for k in range(N_rep):
                         x_p, ekf, z, u = self._tick(
                             x_p, ekf, x_plan, u_plan, k,
                             None if noise_std <= 0 else noise[w, k])
-                        zs.append(z)
-                        us.append(u)
+                        # a graph's outputs: its next replay overwrites them
+                        zs.append(z.clone())
+                        us.append(u.clone())
+                if fused:
+                    stage.check()
                 return {"z": torch.stack(zs, dim=1),
                         "u": torch.stack(us, dim=1)}
 

@@ -35,17 +35,39 @@ def ekf_predict(model, state: EKFState, u, dt, W) -> EKFState:
     return EKFState(x_pred, Sigma_pred)
 
 
-def ekf_correct(model, state: EKFState, y, V) -> EKFState:
+def ekf_correct(model, state: EKFState, y, V, info=None) -> EKFState:
     """Measurement update. `y` (..., n_y) is the full-order measurement; it
-    is shifted to reduced coordinates by the model's y_ref."""
+    is shifted to reduced coordinates by the model's y_ref.
+
+    info: None, and the gain solves with an LU factorization of the
+    innovation covariance S = C Sigma C' + V, which raises
+    torch.linalg.LinAlgError at once (a host read of its status) where S is
+    singular. Or a bool tensor of one element on the state's device: the
+    gain then solves with a Cholesky factor of S, which is symmetric
+    positive definite, a failure of any filter of the batch is OR-ed into
+    `info` on the device, and nothing is read on the host. The batch-fused
+    MPC loop replays that form in a CUDA graph, which can hold the batched
+    Cholesky and triangular solves but not a card's batched LU (MAGMA's,
+    which stages its pointers in host memory and waits for the card). The
+    two forms round differently."""
     with span("ekf.correct"):
         C = model.C
         Sig = state.Sigma
         y_red = y - model.y_ref
         S = C @ Sig @ C.T + V
         # K = Sigma C' S^-1, solved as S' K' = C Sigma'
-        K = torch.linalg.solve(S.transpose(-1, -2),
-                               C @ Sig.transpose(-1, -2)).transpose(-1, -2)
+        rhs = C @ Sig.transpose(-1, -2)
+        if info is None:
+            Kt = torch.linalg.solve(S.transpose(-1, -2), rhs)
+        else:
+            L, failed = torch.linalg.cholesky_ex(S.transpose(-1, -2),
+                                                 check_errors=False)
+            info.logical_or_(failed.ne(0).any())
+            Kt = torch.linalg.solve_triangular(
+                L.transpose(-1, -2),
+                torch.linalg.solve_triangular(L, rhs, upper=False),
+                upper=True)
+        K = Kt.transpose(-1, -2)
         x_new = state.x + (K @ (y_red - state.x @ C.T)[..., None])[..., 0]
         I = torch.eye(state.x.shape[-1], dtype=state.x.dtype,
                       device=state.x.device)

@@ -30,9 +30,16 @@ def chol_blocked(K, leaf: int = 64):
     return torch.linalg.cholesky(K)
 
 
-def make_kinv(P, A, rho_vec, sigma=1e-6):
+def make_kinv(P, A, rho_vec, sigma=1e-6, info=None):
     """K^-1 of K = P + sigma I + A' diag(rho) A for a batch: P (B,n,n),
-    A (B,m,n), rho_vec (m,) or (B,m). Returns (B,n,n)."""
+    A (B,m,n), rho_vec (m,) or (B,m). Returns (B,n,n).
+
+    A K that is not positive definite raises torch.linalg.LinAlgError at
+    once (a host read of the Cholesky's status); or, with `info`, a bool
+    tensor of one element on P's device, a failure of any QP of the batch
+    is OR-ed into it on the device, nothing is read on the host, and K^-1
+    is the same bits. The batch-fused MPC loop replays the deferred form
+    in a CUDA graph, which holds no host read."""
     with span("qp.kinv"):
         n = P.shape[-1]
         I = torch.eye(n, dtype=P.dtype, device=P.device)
@@ -40,7 +47,11 @@ def make_kinv(P, A, rho_vec, sigma=1e-6):
         K = P + sigma * I + (A.transpose(-1, -2) * rho[..., None, :]) @ A
         d = torch.rsqrt(torch.diagonal(K, dim1=-2, dim2=-1))
         Ks = K * d[..., :, None] * d[..., None, :]
-        Ls = torch.linalg.cholesky(Ks)
+        if info is None:
+            Ls = torch.linalg.cholesky(Ks)
+        else:
+            Ls, failed = torch.linalg.cholesky_ex(Ks, check_errors=False)
+            info.logical_or_(failed.ne(0).any())
         Linv = torch.linalg.solve_triangular(Ls, I.expand_as(Ls),
                                              upper=False)
         Linv = Linv @ (2.0 * I - Ls @ Linv)

@@ -15,13 +15,11 @@ from torch.profiler import ProfilerActivity, profile
 from soft_robot_control_tpu_torch.control.batch_mpc import BatchMPC
 from soft_robot_control_tpu_torch.core.constraints import HyperRectangle
 from soft_robot_control_tpu_torch.models.interfaces import TPWLGuSTO
-from soft_robot_control_tpu_torch.models.tpwl import (from_tpwl_dict,
-                                                      rollout_batch)
+from soft_robot_control_tpu_torch.models.tpwl import rollout_batch
 from soft_robot_control_tpu_torch.scp.gusto_jit import GuSTOJit
-from soft_robot_control_tpu_torch.sim.measurement import linearModel
 from soft_robot_control_tpu_torch.utils import timing
 
-import torch_helpers  # noqa: F401  (single-threaded torch)
+from torch_helpers import made_up_tpwl
 
 B, P, R_DIM, NODES, CABLES, DT = 8, 8, 2, 2, 2, 0.01
 N, N_REPLAN, WINDOWS, RHO_STAGES = 3, 2, 2, 2
@@ -31,21 +29,8 @@ N, N_REPLAN, WINDOWS, RHO_STAGES = 3, 2, 2, 2
 def model():
     """A TPWL dictionary of P points near the identity, discrete at DT,
     with two nodes measured and one node's position as the output."""
-    rng = np.random.default_rng(0)
-    n, nf = 2 * R_DIM, 3 * NODES
-    A_c = 0.5 * rng.normal(size=(P, n, n)) - np.eye(n)
-    B_c = rng.normal(size=(P, n, CABLES))
-    d_c = 0.1 * rng.normal(size=(P, n))
-    data = {"q": rng.normal(size=(P, R_DIM)), "v": rng.normal(size=(P, R_DIM)),
-            "u": np.zeros((P, CABLES)), "A_c": A_c, "B_c": B_c, "d_c": d_c,
-            "A_d": np.eye(n) + DT * A_c, "B_d": DT * B_c, "d_d": DT * d_c,
-            "dt": DT,
-            "rom_info": {"type": "POD",
-                         "U": np.linalg.qr(rng.normal(size=(nf, R_DIM)))[0],
-                         "q_ref": np.zeros(nf), "v_ref": np.zeros(nf)}}
-    return from_tpwl_dict(
-        data, Cf=linearModel([0, 1], NODES).C_dense(),
-        Hf=linearModel([1], NODES, vel=False).C_dense(), device="cpu")
+    return made_up_tpwl(P, R_DIM, CABLES, NODES, [0, 1], [1], dt=DT,
+                        a_scale=0.5)
 
 
 def _box():

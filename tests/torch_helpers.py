@@ -56,6 +56,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def made_up_tpwl(P, r, cables, nodes, measured, output, dt=0.01, seed=0,
+                 device="cpu", far=(), a_scale=None):
+    """A TPWL model of P made-up points near the identity, discrete at dt,
+    r POD coordinates of `nodes` nodes, the nodes `measured` (position and
+    velocity) as the measurement and the `output` nodes' positions as the
+    output. Each point's A_c is a_scale N(0, 1) - I, a_scale 0.5/sqrt(2r)
+    unless given. The points listed in `far` lie far from the others
+    (q = 100)."""
+    from soft_robot_control_tpu_torch.models.tpwl import from_tpwl_dict
+    from soft_robot_control_tpu_torch.sim.measurement import linearModel
+
+    rng = np.random.default_rng(seed)
+    n, nf = 2 * r, 3 * nodes
+    if a_scale is None:
+        a_scale = 0.5 / np.sqrt(n)
+    A_c = a_scale * rng.normal(size=(P, n, n)) - np.eye(n)
+    B_c = rng.normal(size=(P, n, cables))
+    d_c = 0.1 * rng.normal(size=(P, n))
+    q = rng.normal(size=(P, r))
+    q[list(far)] = 100.0
+    data = {"q": q, "v": rng.normal(size=(P, r)),
+            "u": np.zeros((P, cables)), "A_c": A_c, "B_c": B_c, "d_c": d_c,
+            "A_d": np.eye(n) + dt * A_c, "B_d": dt * B_c, "d_d": dt * d_c,
+            "dt": dt,
+            "rom_info": {"type": "POD",
+                         "U": np.linalg.qr(rng.normal(size=(nf, r)))[0],
+                         "q_ref": np.zeros(nf), "v_ref": np.zeros(nf)}}
+    return from_tpwl_dict(data, Cf=linearModel(measured, nodes).C_dense(),
+                          Hf=linearModel(output, nodes, vel=False).C_dense(),
+                          device=device)
+
+
 def ssm_targets(B, n_win, N=3, N_replan=2, dt=0.02, seed=7):
     """bench.py section 5's targets: a 2 mm circle through the start in
     the tip's (x, y), one phase a loop from default_rng(seed), in shifted
